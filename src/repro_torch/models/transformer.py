@@ -1,0 +1,152 @@
+"""The dense decoder: parameter init and the two paged serving steps.
+
+Counterpart of the dense family of ``repro/models/transformer.py``.  The
+reference scans over ``[L, ...]``-stacked layers; here the layer loop is a
+Python loop over per-layer param dicts (``repro_torch.convert`` maps the
+reference's stacked tree), and sites carry eager names (``layer{i}/...``)
+so a ``QuantCtx`` finds each layer's packed kernel buffers and a
+``CollectCtx`` attributes calibration stats per layer.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.context import FpCtx
+from repro_torch.models import attention as A
+from repro_torch.models import mlp as M
+from repro_torch.models.common import ModelConfig, apply_norm, softcap
+
+
+class _Named:
+    """Prefixes site names with ``layer{i}/``."""
+
+    def __init__(self, ctx, prefix: str):
+        self.ctx, self.prefix = ctx, prefix
+
+    def __call__(self, name, x, w):
+        return self.ctx(self.prefix + name, x, w)
+
+
+# ---------------------------------------------------------------------------
+# Init (seeded random weights, the reference's shapes and scales)
+# ---------------------------------------------------------------------------
+
+def _dense(gen, shape, fan_in, device):
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return w / math.sqrt(fan_in)
+
+
+def _norm(cfg, d, device):
+    if cfg.norm == "rmsnorm":
+        return {"gain": torch.zeros(d, device=device)}
+    return {"gain": torch.ones(d, device=device),
+            "bias": torch.zeros(d, device=device)}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random weights from ``seed``, in the port's layout.  Dense family,
+    tied embeddings.  ``torch.Generator`` streams differ from
+    ``jax.random``: tests that compare with the reference pass its params
+    through ``repro_torch.convert.from_jax_params`` instead."""
+    if cfg.family != "dense" or not cfg.tie_embeddings:
+        raise NotImplementedError("the port initializes tied dense decoders only")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    params = {
+        "embed": 0.02 * torch.randn((cfg.padded_vocab, d), generator=gen,
+                                    device=device),
+        "ln_f": _norm(cfg, d, device),
+        "layers": [],
+    }
+    for _ in range(cfg.n_layers):
+        attn = {"wqkv": _dense(gen, (d, (h + 2 * kv) * dh), d, device),
+                "wo": _dense(gen, (h * dh, d), h * dh, device)}
+        if cfg.qkv_bias:
+            attn["bqkv"] = torch.zeros((h + 2 * kv) * dh, device=device)
+        if cfg.mlp_type == "swiglu":
+            mlp = {"wi": _dense(gen, (d, 2 * f), d, device),
+                   "wo": _dense(gen, (f, d), f, device)}
+        else:
+            mlp = {"wi": _dense(gen, (d, f), d, device),
+                   "wo": _dense(gen, (f, d), f, device),
+                   "bi": torch.zeros(f, device=device),
+                   "bo": torch.zeros(d, device=device)}
+        params["layers"].append({"ln1": _norm(cfg, d, device), "attn": attn,
+                                 "ln2": _norm(cfg, d, device), "mlp": mlp})
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Paged serving steps
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: ModelConfig, params, tokens) -> torch.Tensor:
+    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    if cfg.scale_embed:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def _layer_caches(kv: dict, i: int):
+    return {n: a[i] for n, a in kv.items()}
+
+
+def _block(cfg, lp, ctx, x, cache, attend, window_flag):
+    h = apply_norm(cfg, lp["ln1"], x)
+    a, _ = attend(cfg, lp["attn"], ctx, h, cache, window_flag=window_flag)
+    if cfg.sandwich_norm:
+        a = apply_norm(cfg, lp["ln1b"], a)
+    x = x + a
+    h = apply_norm(cfg, lp["ln2"], x)
+    m = M.mlp(cfg, lp["mlp"], ctx, h)
+    if cfg.sandwich_norm:
+        m = apply_norm(cfg, lp["ln2b"], m)
+    return x + m
+
+
+def _run(cfg, params, x, kv, routing, ctx, attend):
+    if cfg.family != "dense":
+        raise ValueError(f"paged serving supports the dense family, not "
+                         f"{cfg.family}")
+    ctx = ctx or FpCtx()
+    for i, (lp, kind) in enumerate(zip(params["layers"], cfg.blocks)):
+        cache = {**_layer_caches(kv, i), **routing}
+        x = _block(cfg, lp, _Named(ctx, f"layer{i}/"), x, cache, attend,
+                   kind == "local")
+    x = apply_norm(cfg, params["ln_f"], x)
+    logits = x @ params["embed"].T.to(x.dtype)
+    return softcap(logits, cfg.final_softcap)
+
+
+def decode_step_paged(cfg: ModelConfig, params, tokens, kv: dict,
+                      page_table, pos, ctx=None) -> Tuple[torch.Tensor, dict]:
+    """One-token decode for the whole slot pool against the paged KV pool.
+
+    tokens [b, 1]; ``kv`` = {"k"/"v": [L, n_pages, ps, kvh, dh]} (int8 pages
+    add "k_scale"/"v_scale" [L, n_pages, ps, kvh, 1]); ``page_table``
+    [b, budget] int32 (its width is the read budget); ``pos`` [b] int32.
+    Returns (logits [b, 1, V], kv) — the pool arrays are updated in place."""
+    x = _embed(cfg, params, tokens)
+    logits = _run(cfg, params, x, kv, {"page_table": page_table, "pos": pos},
+                  ctx, A.attention_decode_paged)
+    return logits, kv
+
+
+def prefill_chunk_paged(cfg: ModelConfig, params, tokens, kv: dict,
+                        page_table, start, write_lo, write_hi, ctx=None
+                        ) -> Tuple[torch.Tensor, dict]:
+    """One chunk per prefilling slot, several slots at once, straight into
+    the paged pool.  tokens [b, C]; ``page_table`` [b, pages] int32;
+    ``start`` / ``write_lo`` / ``write_hi`` [b] int32 (see
+    ``attention.attention_prefill_paged``).  Returns (logits [b, C, V],
+    kv), the pool arrays updated in place."""
+    x = _embed(cfg, params, tokens)
+    routing = {"page_table": page_table, "start": start,
+               "write_lo": write_lo, "write_hi": write_hi}
+    logits = _run(cfg, params, x, kv, routing, ctx, A.attention_prefill_paged)
+    return logits, kv
