@@ -236,7 +236,7 @@ def main() -> int:
         for sq in (1, 32):
             args, kw = paged_case(sq, mode, 10 * sq + len(mode))
             ok = PA.paged_attention_decode(*args, **kw)
-            op = PA.paged_attention_decode(*args, **kw, impl="ref")
+            op = PA.paged_attention_plain(*args, **kw)
             torch.cuda.synchronize()
             err = float((ok.float() - op.float()).abs().max())
             atol = BF16_ATOL if mode == "fp" else F32_ATOL
@@ -308,8 +308,8 @@ def main() -> int:
     qs, ks, vs = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     pa = {"fn": lambda: PA.paged_attention_decode(*pa_args, **kw),
-          "plain_ms": time_ms(torch, lambda: PA.paged_attention_decode(
-              *pa_args, **kw, impl="ref"), flush),
+          "plain_ms": time_ms(torch, lambda: PA.paged_attention_plain(
+              *pa_args, **kw), flush),
           "library_ms": time_ms(torch, lambda: sdpa(qs, ks, vs, attn_mask=allow),
                                 flush),
           "shape": f"decode b={b} sq=1 h={h} dh={dh} int8 pages, "
@@ -403,34 +403,44 @@ def main() -> int:
           f"(host clock, eager, first run); launches {launches}  [{card}]",
           flush=True)
 
-    # where a serving step's time goes: one more run under the profiler
-    # (device busy share = summed kernel time / wall time of the run)
+    # where a serving step's time goes: the same 4 requests x 8 tokens twice,
+    # first on the host clock alone, then under the profiler for the kernel
+    # time.  The profiler slows the host, so the busy share is given against
+    # both walls, per step: device time / (unprofiled or profiled) wall.
     from torch.profiler import ProfilerActivity, profile
-    reqs2 = [Request(p, max_new_tokens=8) for p in prompts]
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.generate(reqs2)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # kernel rows only: an aten op's row also carries its kernels' time
-        rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_s = sum(t for _, t in rows) / 1e6
-        top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:8]
-        report["profile"] = {
-            "wall_s": wall, "device_s": dev_s,
-            "steps": engine.metrics.decode_steps + engine.metrics.prefill_steps,
-            "top": [{"name": k[:80], "ms": t / 1e3} for k, t in top]}
-        print(f"profile: {report['profile']['steps']} steps in {wall:.3f} s "
-              f"wall (under the profiler), device busy {dev_s:.4f} s "
-              f"({dev_s / wall:.1%}); top kernels: "
-              + "; ".join(f"{k[:40]} {t / 1e3:.2f} ms" for k, t in top[:4])
-              + f"  [{card}]", flush=True)
-    except Exception as e:     # the profiler is optional: report, go on
-        report["profile"] = {"error": repr(e)}
-        print(f"profile: not measured ({e!r})", flush=True)
+
+    def serve_again():
+        reqs_ = [Request(p, max_new_tokens=8) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(reqs_)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if not all(r.done and r.out_tokens for r in reqs_):
+            raise AssertionError("a repeated request produced no tokens")
+        return wall, engine.metrics.decode_steps + engine.metrics.prefill_steps
+
+    wall_a, steps_a = serve_again()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_b, steps_b = serve_again()
+    # kernel rows only: an aten op's row also carries its kernels' time
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_s = sum(t for _, t in rows) / 1e6
+    top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:8]
+    busy = (dev_s / steps_b) / (wall_a / steps_a)
+    report["profile"] = {
+        "wall_s": wall_a, "steps": steps_a, "profiled_wall_s": wall_b,
+        "profiled_steps": steps_b, "device_s": dev_s, "busy_share": busy,
+        "profiled_busy_share": dev_s / wall_b,
+        "top": [{"name": k[:80], "ms": t / 1e3} for k, t in top]}
+    print(f"profile: {steps_a} steps in {wall_a:.3f} s wall ({steps_b} steps "
+          f"in {wall_b:.3f} s under the profiler); device busy {dev_s:.4f} s, "
+          f"{busy:.1%} of the unprofiled wall ({dev_s / wall_b:.1%} of the "
+          "profiled); top kernels: "
+          + "; ".join(f"{k[:40]} {t / 1e3:.2f} ms" for k, t in top[:4])
+          + f"  [{card}]", flush=True)
 
     # logits on one 2-slot prefill chunk, kernel path vs plain path:
     #  (a) fused MUXQ kernels vs their plain versions, the paged kernel

@@ -12,8 +12,6 @@ way.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
-
 import numpy as np
 import torch
 
@@ -28,7 +26,7 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def from_jax_params(cfg, params_np, device="cpu") -> dict:
+def from_jax_params(cfg, params_np, device="cuda") -> dict:
     """Reference params tree (numpy leaves, stacked layers) -> the port's
     params (tensors on ``device``, a list of per-layer dicts)."""
     out = {k: _map(v, lambda a: _to_tensor(a, device))
@@ -48,7 +46,7 @@ def _leading_dim(tree) -> int:
     return int(np.asarray(tree).shape[0])
 
 
-def params_to(params: dict, device: Optional[Any] = None) -> dict:
+def params_to(params: dict, device="cuda") -> dict:
     """The port's params with every tensor moved to ``device``."""
     def move(t):
         return t.to(device) if isinstance(t, torch.Tensor) else t

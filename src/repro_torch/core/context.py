@@ -56,7 +56,7 @@ class CollectCtx:
 
 
 class QuantCtx:
-    def __init__(self, quant, *, device=None,
+    def __init__(self, quant, *, device="cuda",
                  smooth_factors: Optional[Dict[str, np.ndarray]] = None,
                  kernel_buffers: Optional[Dict[str, dict]] = None) -> None:
         """``quant`` is a QuantConfig, a SitePolicy or a
@@ -103,7 +103,7 @@ class QuantCtx:
         return dispatch.fused_matmul(x, buf, act_bits=cfg.act_bits).to(x.dtype)
 
 
-def as_ctx(quant, device=None):
+def as_ctx(quant, device="cuda"):
     """None | QuantConfig | SitePolicy | QuantArtifact -> a ctx."""
     if quant is None:
         return FpCtx()

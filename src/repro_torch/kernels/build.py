@@ -20,7 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -31,10 +31,20 @@ SOURCES = {
     "paged_attention": "paged_attention.cu",
 }
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# argument types of each library's ``<name>_launch`` C function; every one
+# takes the stream last and returns cudaGetLastError()
+SIGNATURES = {
+    "rowwise_quantize": [_P] * 5 + [_I] * 5 + [_P],
+    "muxq_gemm": [_P] * 6 + [_I] * 4 + [_P],
+    "paged_attention": [_P] * 8 + [_I] * 8 + [_F] * 2 + [_I] * 2 + [_P],
+}
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCHERS: Dict[str, Callable[..., int]] = {}
 
 
 def _nvcc() -> str:
@@ -84,14 +94,17 @@ def build(names: Optional[Iterable[str]] = None,
     return logs
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of one kernel, built on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
+def launcher(name: str) -> Callable[..., int]:
+    """The C function ``<name>_launch`` of one kernel's library, with its
+    signature declared; built and loaded on first use."""
+    fn = _LAUNCHERS.get(name)
+    if fn is None:
         build([name])
-        lib = ctypes.CDLL(str(_target(name)[1]))
-        _LIBS[name] = lib
-    return lib
+        fn = getattr(ctypes.CDLL(str(_target(name)[1])), f"{name}_launch")
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _LAUNCHERS[name] = fn
+    return fn
 
 
 def check(rc: int, name: str) -> None:

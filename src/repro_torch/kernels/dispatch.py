@@ -131,11 +131,9 @@ def as_muxq_weights(buf) -> ops.MuxqWeights:
 # Online: fused execution
 # ---------------------------------------------------------------------------
 
-def fused_matmul(x: torch.Tensor, buf, *, act_bits: int = 8,
-                 impl: Optional[str] = None) -> torch.Tensor:
+def fused_matmul(x: torch.Tensor, buf, *, act_bits: int = 8) -> torch.Tensor:
     """x [..., K] @ packed site buffer -> [..., N] via the fused MUXQ path."""
-    impl = impl or _FUSED_IMPL
     mw = as_muxq_weights(buf)
-    if impl == "ref":
+    if _FUSED_IMPL == "ref":
         return ops.muxq_linear_ref(x, mw, act_bits=act_bits)
     return ops.muxq_linear(x, mw, act_bits=act_bits)

@@ -13,8 +13,6 @@ CUDA tensor launches the kernel, or raises — there is no fallback.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
@@ -70,11 +68,8 @@ def _launch(x_int, w_int, block_scale, sx, sw, bk):
     if x_int.data_ptr() % 16:
         raise ValueError("x_int must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.float32, device=x_int.device)
-    lib = build.library("muxq_gemm")
-    fn = lib.muxq_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(x_int.data_ptr(), w_int.data_ptr(), block_scale.data_ptr(),
+    rc = build.launcher("muxq_gemm")(
+            x_int.data_ptr(), w_int.data_ptr(), block_scale.data_ptr(),
             sx.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n, k, bk,
             torch.cuda.current_stream(x_int.device).cuda_stream)
     build.check(rc, "muxq_gemm")

@@ -16,7 +16,6 @@ forces the plain version.  A CUDA tensor never falls back silently.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Literal, Optional
 
 import torch
@@ -126,13 +125,8 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale, window,
         raise ValueError("int8 page scales must be f32")
     q = q.contiguous()
     out = torch.empty_like(q)
-    lib = build.library("paged_attention")
-    fn = lib.paged_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+    rc = build.launcher("paged_attention")(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr() if int8 else None,
             v_scale.data_ptr() if int8 else None,
             page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
@@ -149,14 +143,12 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale, window,
 def paged_attention_decode(q, k_pages, v_pages, page_table, pos, *,
                            k_scale=None, v_scale=None, k_redist=None,
                            v_redist=None, window=None,
-                           softcap: Optional[float] = None,
-                           impl: Optional[str] = None):
+                           softcap: Optional[float] = None):
     """Impl-dispatching entry point.  q [b, h, dh] (decode) or
     [b, sq, h, dh] (prefill chunk, ``pos`` the first row's position)."""
     if k_redist is not None or v_redist is not None:
         raise NotImplementedError("int4 KV pages are not ported yet")
-    impl = impl or _PAGED_IMPL
-    if impl == "ref" or not q.is_cuda:
+    if _PAGED_IMPL == "ref" or not q.is_cuda:
         return paged_attention_plain(q, k_pages, v_pages, page_table, pos,
                                      k_scale=k_scale, v_scale=v_scale,
                                      window=window, softcap=softcap)

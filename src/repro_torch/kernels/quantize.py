@@ -12,7 +12,6 @@ raises — there is no fallback.  ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -63,11 +62,8 @@ def _launch(x, bits, gather_idx, in_scale):
         k_out = k_in
     q = torch.empty((m, k_out), dtype=torch.int8, device=x.device)
     s = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    lib = build.library("rowwise_quantize")
-    fn = lib.rowwise_quantize_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), gather_idx.data_ptr() if fused else None,
+    rc = build.launcher("rowwise_quantize")(
+            x.data_ptr(), gather_idx.data_ptr() if fused else None,
             in_scale.data_ptr() if fused else None, q.data_ptr(), s.data_ptr(),
             m, k_in, k_out, Q.qmax(bits), _DTYPE_CODES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)

@@ -72,7 +72,7 @@ def test_config_and_param_conversion(model):
     cfg, tcfg = model["cfg"], model["tcfg"]
     assert (tcfg.n_layers, tcfg.d_model, tcfg.padded_vocab, tcfg.head_dim) == (
         cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.head_dim)
-    tp = from_jax_params(tcfg, model["params"])
+    tp = from_jax_params(tcfg, model["params"], device="cpu")
     assert len(tp["layers"]) == cfg.n_layers
     for i in range(cfg.n_layers):
         np.testing.assert_array_equal(
@@ -80,7 +80,7 @@ def test_config_and_param_conversion(model):
             model["params"]["layers"]["attn"]["wqkv"][i])
     np.testing.assert_array_equal(tp["embed"].numpy(), model["params"]["embed"])
     with pytest.raises(ValueError, match="layers"):
-        from_jax_params(tcfg.replace(n_layers=3), model["params"])
+        from_jax_params(tcfg.replace(n_layers=3), model["params"], device="cpu")
 
 
 def test_artifact_load_and_torch_packing_match_bundle(model):
@@ -92,7 +92,8 @@ def test_artifact_load_and_torch_packing_match_bundle(model):
     assert set(art.kernel_buffers) == set(jart.kernel_buffers)
     assert any(m.any() for m in art.masks.values())
     buffers = pack_kernel_buffers(model["tcfg"],
-                                  from_jax_params(model["tcfg"], model["params"]),
+                                  from_jax_params(model["tcfg"], model["params"],
+                                                  device="cpu"),
                                   art.policy, art.masks)
     assert set(buffers) == set(jart.kernel_buffers)
     for site, buf in buffers.items():
@@ -140,7 +141,7 @@ def test_calibration_through_paged_prefill_matches_reference(model):
     ctx = CollectCtx()
     table = torch.arange(1, 1 + b, dtype=torch.int32)[:, None]
     zero = torch.zeros(b, dtype=torch.int32)
-    T.prefill_chunk_paged(tcfg, from_jax_params(tcfg, model["params"]),
+    T.prefill_chunk_paged(tcfg, from_jax_params(tcfg, model["params"], "cpu"),
                           torch.from_numpy(tokens.astype(np.int32)), pool.kv,
                           table, zero, zero, torch.full((b,), s, dtype=torch.int32),
                           ctx)
@@ -165,11 +166,12 @@ def _paged_pair(model, quant, mode):
         tcfg.n_layers, n_pages, ps, tcfg.n_kv_heads, tcfg.head_dim, "cpu")
     if quant is None:
         jctx, qparams = jas_ctx(None)
-        tctx, tparams = FpCtx(), from_jax_params(tcfg, model["params"])
+        tctx, tparams = FpCtx(), from_jax_params(tcfg, model["params"], "cpu")
     else:
         jctx, qparams = jas_ctx(model["art"])
         tart = QuantArtifact.load(model["path"])
-        tctx, tparams = as_ctx(tart, "cpu"), from_jax_params(tcfg, tart.params)
+        tctx = as_ctx(tart, "cpu")
+        tparams = from_jax_params(tcfg, tart.params, "cpu")
     rng = np.random.default_rng(2)
     toks = rng.integers(0, cfg.vocab_size, (b, C)).astype(np.int32)
     table = np.array([[1, 2, 3, 0], [4, 5, 6, 0]], np.int32)
