@@ -3,25 +3,46 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and the process exits non-zero):
+Phases (any failure raises and the process exits non-zero; each prints
+its seconds):
 
 1. Print the card's name and power limit (``nvidia-smi``) and build the
-   hand-written CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, in parallel).
-2. Hold every kernel against its plain PyTorch version on the card at the
-   serving path's shapes, and time the kernel, the plain version and a
-   library yardstick beside the kernel's lower bound on this card.
-3. Serve gpt2-small at full width (12 layers, d_model 768, random weights
-   from a seed) through ``ServeEngine``: calibrate outlier masks with a
-   ``CollectCtx`` pass through the fp paged prefill, pack the fused MUXQ
-   kernel buffers, serve 4 requests x 16 new tokens on int8 pages, and
-   check that the launch counters of all three kernels moved and that the
-   kernel path's logits agree with the plain path's.
-4. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
+   four hand-written CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, in parallel).
+2. Hold every kernel against its plain PyTorch version on the card:
+   ``rowwise_quantize`` and ``muxq_gemm`` bit for bit at gpt2-small's
+   sites; ``paged_attention`` on fp, int8 and int4 pages (int4 at
+   sq in {1, 4, 32} x g in {1, 7}, f32 and bf16 q, ragged tables with
+   scratch page 0, a non-identity redistribution row); ``flash_attention``
+   at b 1, s 2048, h 14, kv 2, dh 64 (causal, f32 and bf16, and a
+   window-and-softcap case).
+3. Time each kernel (CUDA-graph replay after an L2 eviction), its plain
+   version and a PyTorch yardstick beside the kernel's lower bound on this
+   card, at the shapes the serving runs give it.
+4. Serve gpt2-small at full width (12 layers, random weights from a seed,
+   int8 pages): calibrate, pack the fused MUXQ kernel buffers, serve 4
+   requests x 16 tokens, profile a repeat run, and hold the kernel path's
+   logits against the plain path's.
+5. Serve qwen2-0.5b at full width (24 layers, d 896, 14/2 heads, d_ff
+   4864, vocab 151936; random weights with planted activation and KV
+   outliers): calibrate through the port's dense ``forward`` (matmul
+   sites and KV channels) and build the artifact with ``kv_calib``; hold
+   the verify step's logits on int4 pages with the paged kernel against
+   its plain version in place (gated with fp weights, reported with the
+   fused MUXQ ctx); then, on the same weights with the residual branches
+   scaled down (so that the greedy stream repeats and n-gram drafts
+   match), serve 4 repetitive requests x 16 tokens on int4 pages with
+   speculation (k = 4), and the same requests on f32 pages without
+   speculation for comparison.
+6. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
-It imports nothing of JAX or of the reference package.  Details of every
-measurement also go to ``chiprun_out/chip_smoke.json``.
+``launches`` in the JSON line counts the launches of the serving runs of
+phases 4 and 5 (each run starts from zero counts); ``flash_attention`` is
+on no serving path and has 0.  It imports nothing of JAX or of the
+reference package.  Details of every measurement also go to
+``chip_smoke.json`` in the output directory at the root of the checkout
+(``out_dir`` below, listed in ``.gitignore``).
 """
 from __future__ import annotations
 
@@ -34,13 +55,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM data-sheet peaks (dense): HBM3 bytes/s, int8 tensor-core ops/s,
-# float32 (non-tensor-core) flop/s
+# bf16 tensor-core flop/s, float32 (non-tensor-core) flop/s
 HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
+BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
 
-BF16_ATOL = 2e-2    # bf16 pages: the plain version rounds K/V, probs to bf16
-F32_ATOL = 1e-4     # f32: only the summation order differs
+BF16_RTOL = 2e-2    # bf16: the plain version rounds K/V, scores, probs to
+                    # bf16; tolerance 2e-2 x max(1, max |out|), as outlier
+                    # channels make outputs large
+F32_ATOL = 1e-4     # f32 paged attention: only the summation order differs
+FLASH_F32_ATOL = 2e-4   # f32 flash attention over 2048 keys (sum order)
+SERVE_BRANCH_SCALE = 2e-3   # qwen2's served weights: attention and MLP
+                            # output projections scaled down (phase 5)
+VERIFY_RTOL = 1e-3  # in-situ verify logits on int4 pages with fp weights,
+                    # paged kernel vs plain, relative to max |logits|: the
+                    # attention sums' order differs, and an ulp may move an
+                    # int4 K/V code
 
 
 def smi_line() -> str:
@@ -57,8 +88,8 @@ def bound(nbytes: float, ops: float, peak_ops: float):
 
 def time_ms(torch, fn, flush, iters: int = 20) -> float:
     """Mean device time of ``fn`` over ``iters`` runs, each after reading
-    a 64 MB buffer that evicts L2 (the serving path finds weights cold: 12
-    layers of them exceed the 50 MB L2); ``flush=None`` times it warm.
+    a 64 MB buffer that evicts L2 (the serving path finds weights cold:
+    the layers' weights exceed the 50 MB L2); ``flush=None`` times it warm.
     ``fn`` is captured once in a CUDA graph and replayed, so the events
     time the device work and not the Python and launch overhead between
     ops (``call_ms`` measures that)."""
@@ -110,6 +141,20 @@ def maybe_time(torch, fn, flush):
     return time_ms(torch, fn, flush)
 
 
+class Phases:
+    """Prints and records each phase's wall seconds."""
+
+    def __init__(self, report):
+        self.report, self.t0 = report, time.perf_counter()
+        report["phase_s"] = {}
+
+    def done(self, name: str) -> None:
+        t = time.perf_counter()
+        self.report["phase_s"][name] = t - self.t0
+        print(f"phase {name}: {t - self.t0:.1f} s", flush=True)
+        self.t0 = t
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -119,15 +164,17 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
-    from repro_torch.core.context import CollectCtx
+    from repro_torch.core.context import CollectCtx, FpCtx, as_ctx
     from repro_torch.core.muxq import QuantConfig
     from repro_torch.core.policy import SitePolicy
     from repro_torch.kernels import build, dispatch, ops
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import muxq_gemm as G
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import quantize as RQ
     from repro_torch.models import transformer as T
-    from repro_torch.quantize import build_artifact
+    from repro_torch.quantize import build_artifact, calibrate_model
+    from repro_torch.serve import kvq
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.kvcache import quantize_kv
     from repro_torch.serve.pool import PagePool
@@ -139,19 +186,20 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "checks": [], "timings": []}
+    phases = Phases(report)
 
     # -- 1. build -------------------------------------------------------------
-    t0 = time.perf_counter()
     logs = build.build(verbose=True)
-    report["build_s"] = time.perf_counter() - t0
-    print(f"build: {len(logs)} kernels in {report['build_s']:.1f} s", flush=True)
+    print(f"build: {len(logs)} kernels", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    phases.done("build")
 
     flush = torch.zeros(16 << 20, dtype=torch.float32, device=dev)   # 64 MB
     cfg = get_config("gpt2-small")
+    qcfg = get_config("qwen2-0.5b")
     d, f = cfg.d_model, cfg.d_ff
     sites = {"attn_qkv": (d, 3 * d), "attn_out": (d, d), "mlp_up": (d, f),
              "mlp_down": (f, d)}
@@ -164,6 +212,16 @@ def main() -> int:
         kern.setdefault(name, {"max_abs_err": 0.0})
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"],
                                         float(kw.get("max_abs_err", 0.0)))
+
+    def held(name, out, plain, atol, **kw):
+        torch.cuda.synchronize()
+        if atol is None:            # bf16: relative to the output's scale
+            atol = BF16_RTOL * max(1.0, float(plain.float().abs().max()))
+        err = float((out.float() - plain.float()).abs().max())
+        if not (torch.isfinite(out).all() and err <= atol):
+            raise AssertionError(f"{name} {kw}: max abs err {err} > {atol}")
+        record(name, max_abs_err=err, atol=atol, **kw)
+        return err
 
     # -- 2. kernels against their plain versions -------------------------------
     # an outlier run of 8 channels at e = 3: one 512-wide x8 K-block
@@ -204,52 +262,116 @@ def main() -> int:
                 raise AssertionError(f"muxq_gemm {site} m={m}: not bit-equal "
                                      f"(max abs err {err})")
             record("muxq_gemm", site=site, m=m, k_pad=k_pad, n=n, max_abs_err=0.0)
+    # qwen2's widths (K 896 and 4864, N 1152 / 896 / 9728) through both kernels
+    for k, n in ((896, 1152), (896, 9728), (4864, 896)):
+        w = torch.randn(k, n, generator=gen)
+        mask = np.zeros(k, bool)
+        mask[torch.randperm(k, generator=gen)[:6].numpy()] = True
+        mw = ops.prepare_weights(w, mask, 2, bk=512)
+        mw = dispatch.as_muxq_weights({fld: getattr(mw, fld).to(dev).contiguous()
+                                       for fld in dispatch.BUFFER_FIELDS})
+        for m in (4, 32):
+            x = torch.randn(m, k, generator=gen)
+            x[:, torch.from_numpy(mask)] *= 40.0
+            x = x.to(dev)
+            qk, sk = RQ.rowwise_quantize(x, 8, gather_idx=mw.gather_idx,
+                                         in_scale=mw.in_scale)
+            qp, sp = RQ.rowwise_quantize_plain(x, 8, mw.gather_idx, mw.in_scale)
+            yk = G.muxq_gemm(qk, mw.w_int, mw.block_scale, sk, mw.sw, bk=mw.bk)
+            yp = G.muxq_gemm_plain(qk, mw.w_int, mw.block_scale, sk, mw.sw, mw.bk)
+            torch.cuda.synchronize()
+            if not (torch.equal(qk, qp) and torch.equal(sk, sp)
+                    and torch.equal(yk, yp)):
+                raise AssertionError(f"qwen2 width k={k} n={n} m={m}: kernels "
+                                     "differ from their plain versions")
+            record("muxq_gemm", site=f"qwen2 {k}x{n}", m=m, max_abs_err=0.0)
     print("kernel check: rowwise_quantize and muxq_gemm bit-exact at "
-          f"{len(sites)} sites x M in (1, 4, 64, 128)", flush=True)
+          f"{len(sites)} gpt2 sites x M in (1, 4, 64, 128) and 3 qwen2 "
+          "widths x M in (4, 32)", flush=True)
 
     h, dh, ps = cfg.n_heads, cfg.head_dim, 16
     b, n_tab = 4, 8
     n_pages = b * n_tab + 1
 
-    def paged_case(sq, mode, seed):
-        g2 = torch.Generator().manual_seed(seed)
-        qdt = torch.bfloat16 if mode == "fp" else torch.float32
-        q = torch.randn(b, sq, h, dh, generator=g2).to(dev, qdt)
-        k = torch.randn(n_pages, ps, h, dh, generator=g2)
-        v = torch.randn(n_pages, ps, h, dh, generator=g2)
+    def ragged(sq):
         # ragged tables: full, short (tail -> scratch page 0), one page, idle
         table = torch.zeros(b, n_tab, dtype=torch.int32)
         table[0] = torch.arange(1, 1 + n_tab)
         table[1, :3] = torch.arange(9, 12)
         table[2, :1] = 17
-        pos = torch.tensor([n_tab * ps - sq, 3 * ps - sq, 0, 0], dtype=torch.int32)
+        pos = torch.tensor([n_tab * ps - sq, 3 * ps - sq, 0, 0],
+                           dtype=torch.int32)
+        return table.to(dev), pos.to(dev)
+
+    def paged_case(sq, mode, seed, *, heads=h, kvh=h, qdt=None):
+        g2 = torch.Generator().manual_seed(seed)
+        qdt = qdt or (torch.bfloat16 if mode == "fp" else torch.float32)
+        q = torch.randn(b, sq, heads, dh, generator=g2).to(dev, qdt)
+        k = torch.randn(n_pages, ps, kvh, dh, generator=g2).to(dev)
+        v = torch.randn(n_pages, ps, kvh, dh, generator=g2).to(dev)
+        table, pos = ragged(sq)
         kw = {}
         if mode == "int8":
-            parts = quantize_kv(k.to(dev), v.to(dev))
+            parts = quantize_kv(k, v)
             k, v = parts["k"], parts["v"]
             kw = {"k_scale": parts["k_scale"], "v_scale": parts["v_scale"]}
+        elif mode == "int4":
+            # a non-identity redistribution row: 2^2 on two channels per head
+            hot_k, hot_v = 5, dh // 2 + 5
+            mask = np.zeros((kvh, dh), bool)
+            mask[:, [hot_k, hot_v]] = True
+            redist = torch.from_numpy(kvq.redist_from_mask(mask)).to(dev)
+            k[..., hot_k] *= 8.0
+            v[..., hot_v] *= 8.0
+            parts = kvq.Int4KVQuantizer(redist, redist).quantize(k, v)
+            k, v = parts["k"], parts["v"]
+            kw = {"k_scale": parts["k_scale"], "v_scale": parts["v_scale"],
+                  "k_redist": redist, "v_redist": redist}
         else:
-            k, v = k.to(dev, torch.bfloat16), v.to(dev, torch.bfloat16)
-        return (q, k, v, table.to(dev), pos.to(dev)), kw
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        return (q, k, v, table, pos), kw
 
     for mode in ("fp", "int8"):
         for sq in (1, 32):
             args, kw = paged_case(sq, mode, 10 * sq + len(mode))
-            ok = PA.paged_attention_decode(*args, **kw)
-            op = PA.paged_attention_plain(*args, **kw)
-            torch.cuda.synchronize()
-            err = float((ok.float() - op.float()).abs().max())
-            atol = BF16_ATOL if mode == "fp" else F32_ATOL
-            if not (torch.isfinite(ok).all() and err <= atol):
-                raise AssertionError(f"paged_attention {mode} sq={sq}: max abs "
-                                     f"err {err} > {atol}")
-            record("paged_attention", mode=mode, sq=sq, max_abs_err=err,
-                   atol=atol)
-    print("kernel check: paged_attention fp(bf16) and int8 pages, sq in "
-          "(1, 32), within tolerance", flush=True)
+            held(f"paged_attention[{mode}]",
+                 PA.paged_attention_decode(*args, **kw),
+                 PA.paged_attention_plain(*args, **kw),
+                 None if mode == "fp" else F32_ATOL, sq=sq)
+    qkvh = qcfg.n_kv_heads
+    for sq in (1, 4, 32):
+        for g in (1, 7):
+            for qdt in (torch.float32, torch.bfloat16):
+                args, kw = paged_case(sq, "int4", 100 * sq + g, heads=g * qkvh,
+                                      kvh=qkvh, qdt=qdt)
+                held("paged_attention[int4]",
+                     PA.paged_attention_decode(*args, **kw),
+                     PA.paged_attention_plain(*args, **kw),
+                     F32_ATOL if qdt == torch.float32 else None,
+                     sq=sq, g=g, q=str(qdt))
+    print("kernel check: paged_attention on fp (bf16), int8 and int4 pages "
+          "(sq in 1/4/32, g in 1/7, f32 and bf16 q) within tolerance",
+          flush=True)
 
-    # -- timings at the decode shapes (M = 4 slots, the step that dominates
-    # the serving run) ----------------------------------------------------
+    fb, fs, fh, fkv, fdh = 1, 2048, 14, 2, 64
+    fg = torch.Generator().manual_seed(5)
+    flash_in = {dt: tuple(torch.randn(fb, fs, n_h, fdh, generator=fg).to(dev, dt)
+                          for n_h in (fh, fkv, fkv))
+                for dt in (torch.float32, torch.bfloat16)}
+    for dt, kw in ((torch.float32, dict(causal=True)),
+                   (torch.bfloat16, dict(causal=True)),
+                   (torch.float32, dict(causal=True, window=256, softcap=30.0))):
+        fq, fk, fv = flash_in[dt]
+        held("flash_attention", FA.flash_attention(fq, fk, fv, **kw),
+             FA.flash_attention_plain(fq, fk, fv, **kw),
+             FLASH_F32_ATOL if dt == torch.float32 else None,
+             dtype=str(dt), **kw)
+    print("kernel check: flash_attention b 1 s 2048 h 14 kv 2 dh 64 causal "
+          "(f32, bf16) and window 256 + softcap 30 within tolerance",
+          flush=True)
+    phases.done("kernel checks")
+
+    # -- 3. timings at the serving shapes ---------------------------------------
     mask, mw = packed["mlp_up"]
     k, n = sites["mlp_up"]
     k_pad = mw.w_int.shape[0]
@@ -257,84 +379,200 @@ def main() -> int:
     x = torch.randn(m, k, generator=gen).to(dev)
     xq, sx = RQ.rowwise_quantize(x, 8, gather_idx=mw.gather_idx,
                                  in_scale=mw.in_scale)
+
     def rq_fn():
         return RQ.rowwise_quantize(x, 8, gather_idx=mw.gather_idx,
                                    in_scale=mw.in_scale)
 
-    rq = {"fn": rq_fn, "plain_ms": time_ms(torch, lambda: RQ.rowwise_quantize_plain(
-              x, 8, mw.gather_idx, mw.in_scale), flush),
-          "library_ms": None,
-          "shape": f"x [{m}, {k}] f32 -> int8 [{m}, {k_pad}] (mlp_up)"}
-    rq["bound_ms"], rq["bound_by"] = bound(
-        m * k * 4 + k_pad * 8 + m * k_pad + m * 4, 4 * m * k_pad, F32_FLOPS_S)
-
-    lib_ms = maybe_time(torch, lambda: torch._int_mm(xq, mw.w_int), flush)
-    gm = {"fn": lambda: G.muxq_gemm(xq, mw.w_int, mw.block_scale, sx, mw.sw,
-                                    bk=mw.bk),
-          "plain_ms": time_ms(torch, lambda: G.muxq_gemm_plain(
-              xq, mw.w_int, mw.block_scale, sx, mw.sw, mw.bk), flush),
-          "library_ms": lib_ms,
-          "shape": f"int8 [{m}, {k_pad}] x [{k_pad}, {n}] (mlp_up)"}
-    gm["bound_ms"], gm["bound_by"] = bound(
-        m * k_pad + k_pad * n + 4 * (k_pad // mw.bk + m + n) + 4 * m * n,
-        2 * m * n * k_pad, INT8_OPS_S)
+    timed = {}
+    timed["rowwise_quantize"] = {
+        "fn": rq_fn,
+        "plain_ms": time_ms(torch, lambda: RQ.rowwise_quantize_plain(
+            x, 8, mw.gather_idx, mw.in_scale), flush),
+        "library_ms": None,
+        "shape": f"x [{m}, {k}] f32 -> int8 [{m}, {k_pad}] (gpt2 mlp_up)",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            m * k * 4 + k_pad * 8 + m * k_pad + m * 4, 4 * m * k_pad,
+            F32_FLOPS_S)))}
+    timed["muxq_gemm"] = {
+        "fn": lambda: G.muxq_gemm(xq, mw.w_int, mw.block_scale, sx, mw.sw,
+                                  bk=mw.bk),
+        "plain_ms": time_ms(torch, lambda: G.muxq_gemm_plain(
+            xq, mw.w_int, mw.block_scale, sx, mw.sw, mw.bk), flush),
+        "library_ms": maybe_time(torch, lambda: torch._int_mm(xq, mw.w_int),
+                                 flush),
+        "shape": f"int8 [{m}, {k_pad}] x [{k_pad}, {n}] (gpt2 mlp_up)",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            m * k_pad + k_pad * n + 4 * (k_pad // mw.bk + m + n) + 4 * m * n,
+            2 * m * n * k_pad, INT8_OPS_S)))}
 
     # a prefill-width GEMM beside the int8 library GEMM (which needs M > 16)
     xp = torch.randint(-127, 128, (128, k_pad), generator=gen,
                        dtype=torch.int8).to(dev)
     sxp = torch.rand(128, 1, generator=gen).to(dev)
-    report["timings"].append({
-        "kernel": "muxq_gemm", "m": 128, "k_pad": k_pad, "n": n,
-        "ms": time_ms(torch, lambda: G.muxq_gemm(
-            xp, mw.w_int, mw.block_scale, sxp, mw.sw, bk=mw.bk), flush),
-        "int_mm_ms": maybe_time(torch, lambda: torch._int_mm(xp, mw.w_int), flush),
-        "bound_ms": bound(128 * k_pad + k_pad * n + 4 * 128 * n,
-                          2 * 128 * n * k_pad, INT8_OPS_S)[0]})
+    t128 = {"kernel": "muxq_gemm", "m": 128, "k_pad": k_pad, "n": n,
+            "ms": time_ms(torch, lambda: G.muxq_gemm(
+                xp, mw.w_int, mw.block_scale, sxp, mw.sw, bk=mw.bk), flush),
+            "int_mm_ms": maybe_time(torch, lambda: torch._int_mm(xp, mw.w_int),
+                                    flush),
+            "bound_ms": bound(128 * k_pad + k_pad * n + 4 * 128 * n,
+                              2 * 128 * n * k_pad, INT8_OPS_S)[0]}
+    report["timings"].append(t128)
 
-    (q, kp, vp, table, pos), kw = paged_case(1, "int8", 7)
-    # decode step of the serving run: 4 live slots, 128-position tables
-    pos = torch.tensor([127, 100, 64, 40], dtype=torch.int32, device=dev)
-    table = torch.arange(1, 1 + b * n_tab, dtype=torch.int32,
-                         device=dev).reshape(b, n_tab)
-    pa_args = (q, kp, vp, table, pos)
-    n_read = [min(n_tab, int(p) // ps + 1) for p in pos.tolist()]
-    keys = sum(n_read) * ps
-    page_bytes = ps * h * (2 * dh + 2 * 4)          # K + V codes + f32 scales
-    pa_bytes = sum(n_read) * page_bytes + 2 * q.numel() * 4 + table.numel() * 4 + 16
-    kd = (kp.float() * kw["k_scale"])[table.long()].reshape(b, -1, h, dh)
-    vd = (vp.float() * kw["v_scale"])[table.long()].reshape(b, -1, h, dh)
-    kpos = torch.arange(kd.shape[1], device=dev)
-    allow = (kpos[None, :] <= pos[:, None])[:, None, None, :]
-    qs, ks, vs = q.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    pa = {"fn": lambda: PA.paged_attention_decode(*pa_args, **kw),
-          "plain_ms": time_ms(torch, lambda: PA.paged_attention_plain(
-              *pa_args, **kw), flush),
-          "library_ms": time_ms(torch, lambda: sdpa(qs, ks, vs, attn_mask=allow),
-                                flush),
-          "shape": f"decode b={b} sq=1 h={h} dh={dh} int8 pages, "
-                   f"{keys} keys read"}
-    pa["bound_ms"], pa["bound_by"] = bound(pa_bytes, 4 * h * keys * dh,
-                                           F32_FLOPS_S)
-    timed = {"rowwise_quantize": rq, "muxq_gemm": gm, "paged_attention": pa}
+    page_cost = {"fp": lambda ksz: 2 * dh * ksz, "int8": lambda ksz: 2 * (dh + 4),
+                 "int4": lambda ksz: 2 * (dh // 2 + 2)}
+
+    def paged_timing(mode, sq, heads, kvh, pos_list, label):
+        """The paged kernel at a serving shape: b = 4 slots with 128-position
+        tables, positions ``pos_list``; bound from the pages these positions
+        read and the (query, key) pairs the causal mask allows."""
+        (q, kp, vp, _, _), kw = paged_case(sq, mode, 7 + sq, heads=heads,
+                                           kvh=kvh, qdt=torch.float32)
+        if mode == "fp":
+            kp, vp = kp.float(), vp.float()
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        table = torch.arange(1, 1 + b * n_tab, dtype=torch.int32,
+                             device=dev).reshape(b, n_tab)
+        args = (q, kp, vp, table, pos)
+        n_read = [min(n_tab, (p + sq - 1) // ps + 1) for p in pos_list]
+        pairs = sum(p + i + 1 for p in pos_list for i in range(sq))
+        nbytes = (sum(n_read) * ps * kvh * page_cost[mode](kp.element_size())
+                  + 2 * q.numel() * 4 + table.numel() * 4 + 16
+                  + (2 * kvh * dh * 4 if mode == "int4" else 0))
+        # the yardstick: SDPA on the gathered, dequantized K/V, the KV heads
+        # repeated to the query heads (gather, dequantization and repeat
+        # are outside its time)
+        if mode == "int4":
+            qz = kvq.Int4KVQuantizer(kw["k_redist"], kw["v_redist"])
+            kd, vd = qz.dequantize({"k": kp, "v": vp, "k_scale": kw["k_scale"],
+                                    "v_scale": kw["v_scale"]}, torch.float32)
+        elif mode == "int8":
+            kd, vd = kp.float() * kw["k_scale"], vp.float() * kw["v_scale"]
+        else:
+            kd, vd = kp, vp
+        kd = kd[table.long()].reshape(b, -1, kvh, dh).transpose(1, 2)
+        vd = vd[table.long()].reshape(b, -1, kvh, dh).transpose(1, 2)
+        kd = kd.repeat_interleave(heads // kvh, dim=1).contiguous()
+        vd = vd.repeat_interleave(heads // kvh, dim=1).contiguous()
+        kpos = torch.arange(kd.shape[2], device=dev)
+        qpos = pos[:, None] + torch.arange(sq, device=dev)[None]
+        allow = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
+        qs = q.transpose(1, 2)
+        return {"fn": lambda: PA.paged_attention_decode(*args, **kw),
+                "plain_ms": time_ms(torch, lambda: PA.paged_attention_plain(
+                    *args, **kw), flush),
+                "library_ms": time_ms(torch, lambda: sdpa(
+                    qs, kd, vd, attn_mask=allow), flush),
+                "shape": f"{label}: b={b} sq={sq} h={heads} kvh={kvh} dh={dh} "
+                         f"{mode} pages, {sum(n_read) * ps} key positions read",
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    nbytes, 4 * dh * heads * pairs, F32_FLOPS_S)))}
+
+    qh = qcfg.n_heads
+    # decode step of the gpt2 serving run: 4 live slots, 128-position tables
+    timed["paged_attention[int8]"] = paged_timing(
+        "int8", 1, h, h, [127, 100, 64, 40], "gpt2 decode")
+    timed["paged_attention[fp]"] = paged_timing(
+        "fp", 1, qh, qkvh, [127, 100, 64, 40], "qwen2 decode")
+    timed["paged_attention[int4]"] = paged_timing(
+        "int4", 1, qh, qkvh, [127, 100, 64, 40], "qwen2 decode")
+    timed["paged_attention[int4] verify"] = paged_timing(
+        "int4", 4, qh, qkvh, [124, 97, 61, 37], "qwen2 verify")
+    timed["paged_attention[int4] prefill"] = paged_timing(
+        "int4", 32, qh, qkvh, [96, 64, 32, 0], "qwen2 prefill chunk")
+
+    fq, fk, fv = flash_in[torch.bfloat16]
+    pairs = fs * (fs + 1) // 2
+
+    def heads_first(q_, k_, v_):
+        """[b, s, heads, dh] -> SDPA's [b, heads, s, dh], KV heads repeated
+        to the query heads (outside the yardstick's time)."""
+        g_ = q_.shape[2] // k_.shape[2]
+        return tuple(t.repeat_interleave(r, dim=2).transpose(1, 2).contiguous()
+                     for t, r in ((q_, 1), (k_, g_), (v_, g_)))
+
+    sq_in = {dt: heads_first(*flash_in[dt]) for dt in flash_in}
+    timed["flash_attention"] = {
+        "fn": lambda: FA.flash_attention(fq, fk, fv, causal=True),
+        "plain_ms": time_ms(torch, lambda: FA.flash_attention_plain(
+            fq, fk, fv, causal=True), flush),
+        "library_ms": time_ms(torch, lambda: sdpa(
+            *sq_in[torch.bfloat16], is_causal=True), flush),
+        "shape": f"b={fb} s={fs} h={fh} kv={fkv} dh={fdh} causal bf16",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * (fq.numel() * 2 + fk.numel() + fv.numel()),
+            4 * fb * fh * fdh * pairs, BF16_FLOPS_S)))}
+    fq32, fk32, fv32 = flash_in[torch.float32]
+    timed["flash_attention f32"] = {
+        "fn": lambda: FA.flash_attention(fq32, fk32, fv32, causal=True),
+        "plain_ms": time_ms(torch, lambda: FA.flash_attention_plain(
+            fq32, fk32, fv32, causal=True), flush),
+        "library_ms": time_ms(torch, lambda: sdpa(
+            *sq_in[torch.float32], is_causal=True), flush),
+        "shape": f"b={fb} s={fs} h={fh} kv={fkv} dh={fdh} causal f32",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            4 * (fq32.numel() * 2 + fk32.numel() + fv32.numel()),
+            4 * fb * fh * fdh * pairs, F32_FLOPS_S)))}
+
     for name, t in timed.items():
         fn = t.pop("fn")
         t["ms"] = time_ms(torch, fn, flush)
         t["warm_ms"] = time_ms(torch, fn, None)
-        t["call_ms"] = call_ms(torch, fn)
+        t["call_ms"] = call_ms(torch, fn, iters=10 if "flash" in name else 50)
         report["timings"].append({"kernel": name, **t})
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
         print(f"time {name} [{t['shape']}]: kernel {t['ms']:.4f} ms (warm "
               f"L2 {t['warm_ms']:.4f} ms, eager call {t['call_ms']:.4f} ms), "
               f"plain {t['plain_ms']:.4f} ms, "
-              f"library {lib} ms, bound {t['bound_ms']:.4f} ms "
+              f"library {lib} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']})  [{card}]", flush=True)
-    t128 = report["timings"][0]
     print(f"time muxq_gemm [M=128]: kernel {t128['ms']:.4f} ms, torch._int_mm "
           f"{t128['int_mm_ms']} ms, bound {t128['bound_ms']:.4f} ms  [{card}]",
           flush=True)
+    phases.done("timings")
 
-    # -- 3. end to end: gpt2-small at full width --------------------------------
+    policy = SitePolicy.uniform(QuantConfig(
+        method="muxq", outlier_mode="static", act_granularity="per_token",
+        backend="fused", weight_granularity="per_channel"))
+
+    def reset_counts():
+        RQ.LAUNCHES = G.LAUNCHES = PA.LAUNCHES = FA.LAUNCHES = 0
+        for key in PA.MODE_LAUNCHES:
+            PA.MODE_LAUNCHES[key] = 0
+
+    def read_counts():
+        return {"rowwise_quantize": RQ.LAUNCHES, "muxq_gemm": G.LAUNCHES,
+                **{f"paged_attention[{key}]": c
+                   for key, c in PA.MODE_LAUNCHES.items()},
+                "flash_attention": FA.LAUNCHES}
+
+    def serve(engine, prompts, max_new, label):
+        """One main-path run: counts set to 0 just before, read just after."""
+        reqs = [Request(p, max_new_tokens=max_new) for p in prompts]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        for r in reqs:
+            if not r.done or not (len(r.out_tokens) == max_new
+                                  or r.out_tokens[-1] == 257):
+                raise AssertionError(f"{label}: request {r.prompt[:20]!r} "
+                                     f"produced {len(r.out_tokens)} tokens")
+        rep = engine.metrics.report()
+        print(f"serve {label}: {rep['tokens_out']} tokens, "
+              f"{rep['decode_steps']} decode steps ({rep['spec_verify_steps']} "
+              f"verify), {rep['prefill_steps']} prefill steps in {secs:.3f} s "
+              f"(host clock, eager, first run); launches {counts}  [{card}]",
+              flush=True)
+        return reqs, rep, counts, secs
+
+    main_runs = {}
+
+    # -- 4. end to end: gpt2-small at full width --------------------------------
     params = T.init_params(cfg, seed=0, device=dev)
     hot = torch.randperm(d, generator=torch.Generator().manual_seed(1))[:8].to(dev)
     for lp in params["layers"]:           # seeded outlier channels: a random
@@ -354,16 +592,14 @@ def main() -> int:
             T.prefill_chunk_paged(cfg, params, toks, cal_pool.kv, cal_table,
                                   zero2, zero2, full2, collect)
     masks = collect.stats.masks()
-    policy = SitePolicy.uniform(QuantConfig(
-        method="muxq", outlier_mode="static", act_granularity="per_token",
-        backend="fused", weight_granularity="per_channel"))
     art = build_artifact(cfg, params, policy, masks)
     runs = {s: int((b_["block_scale"] > 1).sum())
             for s, b_ in art.kernel_buffers.items()}
     n_runs = sum(1 for r in runs.values() if r)
-    print(f"calibration: {len(masks)} sites, {sum(int(m_.sum()) for m_ in masks.values())}"
-          f" outlier channels; {n_runs} of {len(runs)} packed sites carry a "
-          "2^e block run", flush=True)
+    print(f"gpt2 calibration: {len(masks)} sites, "
+          f"{sum(int(m_.sum()) for m_ in masks.values())} outlier channels; "
+          f"{n_runs} of {len(runs)} packed sites carry a 2^e block run",
+          flush=True)
     if n_runs == 0:
         raise AssertionError("no packed site has a non-empty outlier run")
 
@@ -375,33 +611,17 @@ def main() -> int:
                "one int8 GEMM",
                "Chunked prefill interleaves with the pooled decode so that "
                "long prompts never stall the live slots of the pool."]
-    reqs = [Request(p, max_new_tokens=16) for p in prompts]
-    RQ.LAUNCHES = G.LAUNCHES = PA.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    engine.generate(reqs)
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = {"rowwise_quantize": RQ.LAUNCHES, "muxq_gemm": G.LAUNCHES,
-                "paged_attention": PA.LAUNCHES}
-    rep = engine.metrics.report()
-    for r in reqs:
-        if not r.done or not (len(r.out_tokens) == 16
-                              or r.out_tokens[-1] == 257):
-            raise AssertionError(f"request {r.prompt[:20]!r} produced "
-                                 f"{len(r.out_tokens)} tokens")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was never launched: {launches}")
+    _, rep, launches, serve_s = serve(engine, prompts, 16, "gpt2-small int8")
+    for key in ("rowwise_quantize", "muxq_gemm", "paged_attention[int8]"):
+        if launches[key] <= 0:
+            raise AssertionError(f"gpt2 serve never launched {key}: {launches}")
+    main_runs["gpt2-small int8"] = launches
     report["serve"] = {"seconds": serve_s, "launches": launches,
                        "tokens_out": rep["tokens_out"],
                        "decode_steps": rep["decode_steps"],
                        "prefill_steps": rep["prefill_steps"],
                        "prefill_chunks": rep["prefill_chunks"],
                        "outlier_runs": runs}
-    print(f"serve: {rep['tokens_out']} tokens, {rep['decode_steps']} decode "
-          f"steps, {rep['prefill_steps']} prefill steps in {serve_s:.3f} s "
-          f"(host clock, eager, first run); launches {launches}  [{card}]",
-          flush=True)
 
     # where a serving step's time goes: the same 4 requests x 8 tokens twice,
     # first on the host clock alone, then under the profiler for the kernel
@@ -435,10 +655,10 @@ def main() -> int:
         "profiled_steps": steps_b, "device_s": dev_s, "busy_share": busy,
         "profiled_busy_share": dev_s / wall_b,
         "top": [{"name": k[:80], "ms": t / 1e3} for k, t in top]}
-    print(f"profile: {steps_a} steps in {wall_a:.3f} s wall ({steps_b} steps "
-          f"in {wall_b:.3f} s under the profiler); device busy {dev_s:.4f} s, "
-          f"{busy:.1%} of the unprofiled wall ({dev_s / wall_b:.1%} of the "
-          "profiled); top kernels: "
+    print(f"profile gpt2: {steps_a} steps in {wall_a:.3f} s wall ({steps_b} "
+          f"steps in {wall_b:.3f} s under the profiler); device busy "
+          f"{dev_s:.4f} s, {busy:.1%} of the unprofiled wall "
+          f"({dev_s / wall_b:.1%} of the profiled); top kernels: "
           + "; ".join(f"{k[:40]} {t / 1e3:.2f} ms" for k, t in top[:4])
           + f"  [{card}]", flush=True)
 
@@ -485,30 +705,196 @@ def main() -> int:
     report["serve"].update(logits_fp_max_abs_err=err_b, logits_fp_scale=scale_b,
                            logits_int8_max_abs_err=err_c,
                            logits_int8_argmax_agreement=agree)
-    print(f"logits: (a) fused kernels bit-equal in situ; (b) paged kernel vs "
-          f"plain on fp32 pages max abs err {err_b:.3e} (|logits| max "
+    print(f"logits gpt2: (a) fused kernels bit-equal in situ; (b) paged kernel "
+          f"vs plain on fp32 pages max abs err {err_b:.3e} (|logits| max "
           f"{scale_b:.3f}); (c) all-kernel vs all-plain int8 max abs err "
           f"{err_c:.3e}, argmax agreement {agree:.3f}", flush=True)
     if err_b > 1e-3 * scale_b:
         raise AssertionError("(b) paged kernel logits disagree with the plain path")
+    del engine, params, art, cal_pool
+    torch.cuda.empty_cache()
+    phases.done("serve gpt2-small")
 
-    # -- 4. result lines -------------------------------------------------------
+    # -- 5. end to end: qwen2-0.5b at full width, int4 pages + speculation ------
+    qdh = qcfg.head_dim
+    k0 = qcfg.n_heads * qdh                 # K columns of wqkv start here
+    k_hot = [k0 + 5, k0 + qdh * (qkvh - 1) + (qdh // 2 + 5) % qdh]
+    qhot = torch.randperm(qcfg.d_model,
+                          generator=torch.Generator().manual_seed(2))[:8].to(dev)
+    cal_batches = [{"tokens": torch.randint(
+        0, qcfg.vocab_size, (2, 64),
+        generator=torch.Generator().manual_seed(10 + i)).numpy()}
+        for i in range(2)]
+
+    def qwen2_artifact(branch_scale, label):
+        """Seeded qwen2 weights with planted outliers (8 RMSNorm gain
+        channels x20, two K channels of wqkv x20), the attention and MLP
+        output projections scaled by ``branch_scale``; calibrated through
+        the dense forward and packed under the fused-MUXQ policy."""
+        params_ = T.init_params(qcfg, seed=0, device=dev)
+        for lp in params_["layers"]:
+            lp["ln1"]["gain"][qhot] = 19.0      # RMSNorm (1 + gain): x20
+            lp["ln2"]["gain"][qhot] = 19.0
+            lp["attn"]["wqkv"][:, k_hot] *= 20.0   # KV outlier channels
+            lp["attn"]["wo"] *= branch_scale
+            lp["mlp"]["wo"] *= branch_scale
+        stats_, calib_ = calibrate_model(qcfg, params_, cal_batches, device=dev)
+        masks_ = stats_.masks()
+        n_kv = int(calib_["k_mask"].sum() + calib_["v_mask"].sum())
+        print(f"qwen2 calibration ({label}, dense forward): {len(masks_)} "
+              f"sites, {sum(int(m_.sum()) for m_ in masks_.values())} "
+              f"activation outlier channels; {n_kv} KV outlier channels "
+              f"(k {calib_['k_mask'].sum()}, v {calib_['v_mask'].sum()} of "
+              f"{2 * qkvh * qdh})", flush=True)
+        if n_kv <= 0:
+            raise AssertionError("calibration found no KV outlier channel")
+        art_ = build_artifact(qcfg, params_, policy, masks_, kv_calib=calib_)
+        if not any(int((b_["block_scale"] > 1).sum())
+                   for b_ in art_.kernel_buffers.values()):
+            raise AssertionError("no qwen2 packed site has a non-empty "
+                                 "outlier run")
+        return params_, art_, calib_, n_kv
+
+    # the verify step in place, kernels vs plain paged version, on the
+    # unscaled weights (attention moves the logits there): a 2-slot
+    # 32-token prefill on int4 pages, then one k = 4 verify block (slot 1
+    # crosses a page boundary), from the same pool state both times
+    vparams, vart, vcalib, _ = qwen2_artifact(1.0, "unscaled")
+    vctx = as_ctx(vart, dev)
+    vpool = PagePool(qcfg, 2, 64, page_size=16, mode="int4", kv_calib=vcalib,
+                     device=dev)
+    vtab = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(2, 4)
+    vtoks = torch.randint(0, qcfg.vocab_size, (2, 32),
+                          generator=torch.Generator().manual_seed(4),
+                          dtype=torch.int32).to(dev)
+    vlen = torch.tensor([32, 30], dtype=torch.int32, device=dev)
+    zero = torch.zeros(2, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        T.prefill_chunk_paged(qcfg, vparams, vtoks, vpool.kv, vtab, zero,
+                              zero, vlen, vctx)
+    snapshot = {n_: a.clone() for n_, a in vpool.kv.items()}
+    block = torch.randint(0, qcfg.vocab_size, (2, 4),
+                          generator=torch.Generator().manual_seed(5),
+                          dtype=torch.int32).to(dev)
+    n_valid = torch.tensor([4, 4], dtype=torch.int32, device=dev)
+
+    def verify_logits(ctx, paged):
+        kv = {n_: a.clone() for n_, a in snapshot.items()}
+        prev = PA.set_paged_impl(paged)
+        try:
+            with torch.no_grad():
+                out, _ = T.decode_verify_paged(qcfg, vparams, block, kv,
+                                               vtab, vlen, n_valid, ctx)
+        finally:
+            PA.set_paged_impl(prev)
+        return out[..., :qcfg.vocab_size]
+
+    #  (d) fp weights: gated at VERIFY_RTOL of the logit scale;
+    #  (e) the fused MUXQ ctx: reported only — an ulp of attention flips
+    #      int8 activation codes (34k calibrated outlier channels), and 24
+    #      random layers amplify each flip, as (c) shows for gpt2
+    vk = verify_logits(FpCtx(), "auto")
+    vp = verify_logits(FpCtx(), "ref")
+    verr = float((vk - vp).abs().max())
+    vscale = float(vp.abs().max())
+    qk_ = verify_logits(vctx, "auto")
+    qp_ = verify_logits(vctx, "ref")
+    qerr = float((qk_ - qp_).abs().max())
+    vagree = float((qk_.argmax(-1) == qp_.argmax(-1)).float().mean())
+    print(f"logits qwen2 verify (int4 pages, k = 4), paged kernel vs plain: "
+          f"(d) fp weights max abs err {verr:.3e} (|logits| max {vscale:.3f}, "
+          f"tolerance {VERIFY_RTOL} x max); (e) fused MUXQ max abs err "
+          f"{qerr:.3e}, argmax agreement {vagree:.3f}", flush=True)
+    if not (torch.isfinite(vk).all() and torch.isfinite(qk_).all()) \
+            or verr > VERIFY_RTOL * vscale:
+        raise AssertionError("qwen2 verify logits: the paged kernel disagrees "
+                             "with the plain version in place")
+    del vparams, vart, vctx, vpool, snapshot
+    torch.cuda.empty_cache()
+    phases.done("qwen2 calibrate + pack + verify logits")
+
+    # the served model: at full vocabulary a random net's greedy stream never
+    # revisits a token, so n-gram drafts would never match; with the residual
+    # branches scaled down the stream repeats the last token and speculation
+    # has drafts to verify
+    qparams, qart, kv_calib, n_kv_out = qwen2_artifact(SERVE_BRANCH_SCALE,
+                                                       "served")
+    qprompts = ["one two three one two three one two three one two three",
+                "abc abc abc abc abc abc abc abc",
+                "the pool pages the pool pages the pool pages",
+                "spec spec spec spec spec spec spec"]
+    qengine = ServeEngine(qcfg, qart, max_batch=4, s_max=256, prefill_chunk=32,
+                          kv_mode="int4", spec_mode="ngram", spec_k=4,
+                          device=dev)
+    if float(qengine.pool.kv["k_redist"].max()) <= 1.0:
+        raise AssertionError("int4 pool runs with identity redistribution")
+    qreqs, qrep, qlaunch, qsecs = serve(qengine, qprompts, 16,
+                                        "qwen2-0.5b int4 + ngram spec")
+    for key in ("rowwise_quantize", "muxq_gemm", "paged_attention[int4]"):
+        if qlaunch[key] <= 0:
+            raise AssertionError(f"qwen2 serve never launched {key}: {qlaunch}")
+    if qrep["spec_verify_steps"] <= 0:
+        raise AssertionError("the speculative verify step never ran")
+    int8_bpt = PagePool(qcfg, 4, 256, page_size=16, mode="int8",
+                        device=dev).stats()["bytes_per_token"]
+    ratio = qrep["bytes_per_token"] / int8_bpt
+    if ratio != 0.5:
+        raise AssertionError(f"int4/int8 bytes_per_token ratio {ratio} != 0.5")
+    main_runs["qwen2-0.5b int4 spec"] = qlaunch
+
+    # the same requests on f32 pages without speculation (also the main-path
+    # run of the fp page mode): share of tokens where the streams agree
+    fengine = ServeEngine(qcfg, qart, max_batch=4, s_max=256, prefill_chunk=32,
+                          kv_mode="fp", cache_dtype=torch.float32, device=dev)
+    freqs, frep, flaunch, fsecs = serve(fengine, qprompts, 16,
+                                        "qwen2-0.5b f32 pages, spec off")
+    if flaunch["paged_attention[fp]"] <= 0:
+        raise AssertionError(f"fp serve never launched the paged kernel: {flaunch}")
+    main_runs["qwen2-0.5b fp"] = flaunch
+    same = sum(a == b_ for r1, r2 in zip(qreqs, freqs)
+               for a, b_ in zip(r1.out_tokens, r2.out_tokens))
+    total = sum(len(r.out_tokens) for r in qreqs)
+    print(f"qwen2 int4+spec vs f32 pages spec off: {same}/{total} tokens agree "
+          f"position by position ({same / total:.3f}); steps "
+          f"{qrep['decode_steps']} vs {frep['decode_steps']}, spec accepted "
+          f"{qrep['spec_accepted']} of {qrep['spec_proposed']} proposed",
+          flush=True)
+    report["serve_qwen2"] = {
+        "seconds": qsecs, "launches": qlaunch, "kv_outlier_channels": n_kv_out,
+        "report": {k_: v_ for k_, v_ in qrep.items() if k_ != "decode_buckets"},
+        "bytes_per_token_ratio_int4_int8": ratio,
+        "verify_fp_weights_max_abs_err": verr, "verify_logits_scale": vscale,
+        "verify_fused_max_abs_err": qerr,
+        "verify_fused_argmax_agreement": vagree,
+        "fp_run": {"seconds": fsecs, "launches": flaunch,
+                   "decode_steps": frep["decode_steps"]},
+        "token_agreement_vs_fp_spec_off": same / total}
+    phases.done("serve qwen2-0.5b")
+
+    # -- 6. result lines ---------------------------------------------------------
+    pa_src = ("src/repro_torch/csrc/paged_attention.cu",
+              "src/repro/kernels/paged_attention.py:161")
     sources = {"rowwise_quantize": ("src/repro_torch/csrc/rowwise_quantize.cu",
                                     "src/repro/kernels/quantize.py:19"),
                "muxq_gemm": ("src/repro_torch/csrc/muxq_gemm.cu",
                              "src/repro/kernels/muxq_gemm.py:27"),
-               "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                                   "src/repro/kernels/paged_attention.py:161")}
+               "paged_attention[fp]": pa_src,
+               "paged_attention[int8]": pa_src,
+               "paged_attention[int4]": pa_src,
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:26")}
     kernels = []
     for name, (src, replaces) in sources.items():
         t = timed[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": sum(c[name] for c in main_runs.values()),
                         "max_abs_err": kern[name]["max_abs_err"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
     report["kernels"] = kernels
+    report["main_runs"] = main_runs
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,17 +1,24 @@
-// Paged attention over a block pool of KV pages (fp or int8 pages).
+// Paged attention over a block pool of KV pages (fp, int8 or int4 pages).
 //
 // Replaces: src/repro/kernels/paged_attention.py `_kernel` /
-// `paged_attention_pallas` (Pallas), fp and int8 page modes.  The int4
-// nibble mode of that kernel is not ported yet.
+// `paged_attention_pallas` (Pallas), all three page modes.
 //
 // One block per (slot, kv-head).  The block holds the sq*g query rows of
 // its group (row r sits at absolute position pos[b] + r / g), loads its
 // own page ids from the page table and walks the slot's pages in order:
 // each page (ps positions x dh) is read once from device memory,
-// dequantized in the kernel (int8 codes times the per-(position, head) f32
-// scale) into shared memory, and then every query row of the block
-// consumes it with an online softmax (running max, denominator and
-// un-normalized accumulator kept in shared memory, one warp per row).
+// dequantized in the kernel into shared memory, and then every query row
+// of the block consumes it with an online softmax (running max,
+// denominator and un-normalized accumulator kept in shared memory, one
+// warp per row).  Dequantization follows the plain version's order of
+// operations and rounds to q's dtype as it does:
+//   int8: code * f32 scale;
+//   int4: channel d < dh/2 sits in the low nibble of byte d, channel
+//         d >= dh/2 in the high nibble of byte d - dh/2 (half-split
+//         layout); the nibble is sign-extended through int32 shifts
+//         ((p << 28) >> 28, (p << 24) >> 28), multiplied by the bf16
+//         scale as f32, then by the redistribution row redist[head, d]
+//         (2^e on MUXQ outlier channels, 1 elsewhere).
 // Pages past the block's last query position are fully masked and are not
 // read; with NEG_INF = -1e9 (not -inf) a masked-only prefix stays finite,
 // as in the reference, so slots that point at scratch page 0 give finite
@@ -19,11 +26,18 @@
 // denominator is floored at 1e-30.
 //
 // Bound on an H100: bytes.  Decode (sq = 1, g = 1) does 4*dh operations
-// per key for dh (int8: dh + 4) bytes, far under the card's balance point;
-// chunked prefill (sq = 32) reuses each page for 32 rows, still
-// memory-bound at these widths.  Design for the bytes: the int8 codes are
-// what crosses device memory and each page is read once per (slot, head)
-// whatever sq is.  The math is plain SIMT float32 in this version.
+// per key for dh (int8: dh + 4; int4: dh/2 + 2) bytes, far under the
+// card's balance point; speculative verify (sq = k) and chunked prefill
+// (sq = 32) reuse each page for sq*g rows, still memory-bound at these
+// widths.  Design for the bytes: the int8 or packed int4 codes are what
+// crosses device memory, and each page is read once per (slot, head)
+// whatever sq is.  The math is plain SIMT float32 in this version; with
+// qwen2's g = 7 a prefill block has 224 rows over 4 warps, which is slow.
+//
+// Shared memory is 4 * (2*sq*g*dh + 2*sq*g + 2*ps*(dh + 1) + 128) bytes.
+// Above 48 KB the launcher opts in with cudaFuncSetAttribute; above the
+// card's 227 KB that call fails and its error is returned, never a
+// silently skipped launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,6 +60,23 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
+// a dequantized value rounded to q's dtype, as the plain version casts it
+template <typename QT>
+__device__ __forceinline__ float round_to(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// int4 code of channel d from the half-split packed row (sign-extended)
+__device__ __forceinline__ float int4_code(const int8_t* row, int d,
+                                           int half) {
+  const bool lo = d < half;
+  const unsigned p =
+      static_cast<unsigned>(static_cast<int>(row[lo ? d : d - half]));
+  return static_cast<float>(static_cast<int>(p << (lo ? 28 : 24)) >> 28);
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
@@ -58,11 +89,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename QT, typename KT>
+template <typename QT, typename KT, bool kInt4>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const QT* __restrict__ q, const KT* __restrict__ k_pages,
-    const KT* __restrict__ v_pages, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ table,
+    const KT* __restrict__ v_pages, const void* __restrict__ k_scale,
+    const void* __restrict__ v_scale, const float* __restrict__ k_redist,
+    const float* __restrict__ v_redist, const int* __restrict__ table,
     const int* __restrict__ pos, QT* __restrict__ out, int sq, int h,
     int kvh, int dh, int ps, int n_table, int window, float scale,
     float softcap) {
@@ -99,14 +131,27 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     for (int idx = tid; idx < ps * dh; idx += kThreads) {
       const int p = idx / dh, d = idx % dh;
       const size_t cell = (static_cast<size_t>(pid) * ps + p) * kvh + hh;
-      float kv = to_float(k_pages[cell * dh + d]);
-      float vv = to_float(v_pages[cell * dh + d]);
-      if (k_scale != nullptr) {
-        kv = __fmul_rn(kv, k_scale[cell]);
-        vv = __fmul_rn(vv, v_scale[cell]);
+      float kv, vv;
+      if constexpr (kInt4) {
+        const int half = dh >> 1;
+        const auto* kbs = static_cast<const __nv_bfloat16*>(k_scale);
+        const auto* vbs = static_cast<const __nv_bfloat16*>(v_scale);
+        kv = __fmul_rn(__fmul_rn(int4_code(k_pages + cell * half, d, half),
+                                 __bfloat162float(kbs[cell])),
+                       k_redist[hh * dh + d]);
+        vv = __fmul_rn(__fmul_rn(int4_code(v_pages + cell * half, d, half),
+                                 __bfloat162float(vbs[cell])),
+                       v_redist[hh * dh + d]);
+      } else {
+        kv = to_float(k_pages[cell * dh + d]);
+        vv = to_float(v_pages[cell * dh + d]);
+        if (k_scale != nullptr) {
+          kv = __fmul_rn(kv, static_cast<const float*>(k_scale)[cell]);
+          vv = __fmul_rn(vv, static_cast<const float*>(v_scale)[cell]);
+        }
       }
-      ks[p * ldk + d] = kv;
-      vs[p * ldk + d] = vv;
+      ks[p * ldk + d] = round_to<QT>(kv);
+      vs[p * ldk + d] = round_to<QT>(vv);
     }
     __syncthreads();
     for (int r = warp; r < rows; r += kWarps) {
@@ -152,27 +197,32 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-template <typename QT, typename KT>
+template <typename QT, typename KT, bool kInt4 = false>
 int launch(const void* q, const void* kp, const void* vp, const void* ks,
-           const void* vs, const void* table, const void* pos, void* out,
-           int b, int sq, int h, int kvh, int dh, int ps, int n_table,
-           int window, float scale, float softcap, cudaStream_t st) {
+           const void* vs, const void* kr, const void* vr, const void* table,
+           const void* pos, void* out, int b, int sq, int h, int kvh, int dh,
+           int ps, int n_table, int window, float scale, float softcap,
+           cudaStream_t st) {
   const int rows = sq * (h / kvh);
   const size_t smem =
       sizeof(float) *
       (2 * rows * dh + 2 * rows + 2 * ps * (dh + 1) + kWarps * 32);
-  auto kern = paged_attention_kernel<QT, KT>;
-  if (smem > 48 * 1024) {
+  auto kern = paged_attention_kernel<QT, KT, kInt4>;
+  // opt in above 48 KB once per instantiation and size, so a launch
+  // inside a CUDA-graph capture makes no attribute call
+  static size_t opted_in = 48 * 1024;
+  if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
+    opted_in = smem;
   }
   dim3 grid(b, kvh);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(kp),
-      static_cast<const KT*>(vp), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(table),
+      static_cast<const KT*>(vp), ks, vs, static_cast<const float*>(kr),
+      static_cast<const float*>(vr), static_cast<const int*>(table),
       static_cast<const int*>(pos), static_cast<QT*>(out), sq, h, kvh, dh, ps,
       n_table, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
@@ -182,27 +232,31 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
 
 // q [b, sq, h, dh] (q_dtype 0 = f32, 1 = bf16; out has q's dtype);
 // pages [n_pages, ps, kvh, dh] (kv_dtype 0 = f32, 1 = bf16, 2 = int8 with
-// f32 scales [n_pages, ps, kvh, 1]; scales null otherwise); table
+// f32 scales [n_pages, ps, kvh, 1]; 3 = int4: int8 [n_pages, ps, kvh, dh/2]
+// packed bytes, bf16 scales [n_pages, ps, kvh, 1] and f32 redistribution
+// rows k/v_redist [kvh, dh]; pointers a mode does not use are null); table
 // [b, n_table] int32; pos [b] int32.  softcap <= 0 means none; ps <= 32.
 extern "C" int paged_attention_launch(
     const void* q, const void* k_pages, const void* v_pages,
-    const void* k_scale, const void* v_scale, const void* table,
-    const void* pos, void* out, int b, int sq, int h, int kvh, int dh, int ps,
-    int n_table, int window, float scale, float softcap, int q_dtype,
-    int kv_dtype, void* stream) {
+    const void* k_scale, const void* v_scale, const void* k_redist,
+    const void* v_redist, const void* table, const void* pos, void* out,
+    int b, int sq, int h, int kvh, int dh, int ps, int n_table, int window,
+    float scale, float softcap, int q_dtype, int kv_dtype, void* stream) {
   if (b == 0 || sq == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PA_ARGS                                                              \
-  q, k_pages, v_pages, k_scale, v_scale, table, pos, out, b, sq, h, kvh, dh, \
-      ps, n_table, window, scale, softcap, st
+#define PA_ARGS                                                          \
+  q, k_pages, v_pages, k_scale, v_scale, k_redist, v_redist, table, pos, \
+      out, b, sq, h, kvh, dh, ps, n_table, window, scale, softcap, st
   if (q_dtype == 0) {
     if (kv_dtype == 0) return launch<float, float>(PA_ARGS);
     if (kv_dtype == 1) return launch<float, __nv_bfloat16>(PA_ARGS);
     if (kv_dtype == 2) return launch<float, int8_t>(PA_ARGS);
+    if (kv_dtype == 3) return launch<float, int8_t, true>(PA_ARGS);
   } else if (q_dtype == 1) {
     if (kv_dtype == 0) return launch<__nv_bfloat16, float>(PA_ARGS);
     if (kv_dtype == 1) return launch<__nv_bfloat16, __nv_bfloat16>(PA_ARGS);
     if (kv_dtype == 2) return launch<__nv_bfloat16, int8_t>(PA_ARGS);
+    if (kv_dtype == 3) return launch<__nv_bfloat16, int8_t, true>(PA_ARGS);
   }
 #undef PA_ARGS
   return static_cast<int>(cudaErrorInvalidValue);

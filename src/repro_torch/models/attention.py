@@ -1,9 +1,16 @@
-"""Paged attention steps of the dense decoder (counterpart of the paged
-part of ``repro/models/attention.py``).
+"""Attention of the dense decoder (counterpart of
+``repro/models/attention.py``): the full-sequence eager ``attention`` of
+the calibration forward, and the three paged serving steps.
 
-Both steps project QKV through the quantization ctx (``attn_qkv``), apply
-RoPE, quantize the new K/V through the pool's page mode, scatter them into
-the slot's pages, read every slot's key range through the page table with
+The dense path (``sdpa`` with a ``causal_bias``) is the reference's op
+sequence; it also reports each layer's post-RoPE K/V to an optional
+observer (:func:`set_kv_observer`), which is how int4 KV pages calibrate
+their per-head outlier channels.
+
+The paged steps (decode, speculative verify, chunked prefill) project QKV
+through the quantization ctx (``attn_qkv``), apply RoPE, quantize the new
+K/V through the pool's page mode, scatter them into the slot's pages,
+read every slot's key range through the page table with
 ``repro_torch.kernels.paged_attention`` and project the result
 (``attn_out``).  Writes into the pool arrays happen IN PLACE (the pool
 holds one copy of every page; the reference's functional ``.at[].set``
@@ -13,15 +20,27 @@ the reserved scratch page 0, which is never read back for a live row.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import paged_attention as PA
-from repro_torch.models.common import ModelConfig, apply_rope
+from repro_torch.models.common import ModelConfig, apply_rope, softcap
 from repro_torch.serve import kvq
 
 NEG_INF = -1e9
+
+# Optional KV calibration hook: when set (``repro_torch.quantize`` installs
+# a ``kvq.KVCalibCollector`` over the calibration forwards), every
+# full-sequence ``attention`` reports its post-RoPE K/V.  None otherwise.
+_KV_OBSERVER = None
+
+
+def set_kv_observer(fn) -> None:
+    """Install (or clear, with None) the calibration KV observer, called
+    as ``fn(layer_prefix, k, v)`` with [b, s, kvh, dh] tensors."""
+    global _KV_OBSERVER
+    _KV_OBSERVER = fn
 
 
 def _split_qkv(cfg: ModelConfig, qkv: torch.Tensor):
@@ -40,6 +59,52 @@ def _project_qkv(cfg, p, ctx, x, positions):
     q, k, v = _split_qkv(cfg, qkv)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def sdpa(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+         v: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """Grouped-query softmax(QK^T/sqrt(d) [softcap] + bias) V.  q
+    [b, sq, h, dh]; k/v [b, sk, kv, dh] (unrepeated: the group dim rides
+    inside the einsum)."""
+    b, sq_, h, dh = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, sq_, kv, g, dh)
+    scale = cfg.head_dim ** -0.5
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
+    scores = softcap(scores, cfg.attn_softcap)
+    if bias is not None:
+        scores = scores + bias[:, :, None]    # [..., sq, sk] -> group bcast
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq_, h, dh)
+
+
+def causal_bias(sq: int, sk: int, window: int, window_flag: bool,
+                device=None) -> torch.Tensor:
+    """[1, 1, sq, sk] additive mask; ``window_flag`` selects sliding-window
+    locality."""
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    allow = kpos <= qpos
+    if window_flag:
+        allow = allow & (kpos > qpos - window)
+    return torch.where(allow, 0.0, NEG_INF).float()[None, None]
+
+
+def attention(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
+              positions: torch.Tensor, *, window_flag: bool = False
+              ) -> torch.Tensor:
+    """Full-sequence causal attention (the calibration forward).  x
+    [b, s, d]; positions [b, s].  Reports the post-RoPE K/V to the KV
+    observer under the ctx's site prefix."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, ctx, x, positions)
+    if _KV_OBSERVER is not None:
+        _KV_OBSERVER(getattr(ctx, "prefix", ""), k, v)
+    bias = causal_bias(s, s, cfg.window_size, window_flag, device=x.device)
+    o = sdpa(cfg, q, k, v, bias).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return ctx("attn_out", o, p["wo"])
 
 
 def _scatter(cache: dict, parts: dict, page_idx: torch.Tensor,
@@ -104,4 +169,36 @@ def attention_prefill_paged(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
              (p_abs % ps).long())
     o = _read(cfg, window_flag, q, cache, page_table, start, quantizer)
     o = o.reshape(b, C, cfg.n_heads * cfg.head_dim)
+    return ctx("attn_out", o, p["wo"]), cache
+
+
+def attention_verify_paged(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
+                           cache: dict, *, window_flag: bool = False
+                           ) -> Tuple[torch.Tensor, dict]:
+    """Pool-wide multi-token decode (the speculative verify step).  x
+    [b, k, d]: per slot the last committed token then up to k - 1 draft
+    tokens; ``cache`` holds one layer's pages plus ``page_table`` [b, P],
+    ``pos`` [b] (the first row's position) and ``n_valid`` [b] int32 (real
+    rows per slot; 0 parks a slot).  Row j of slot b sits at position
+    ``pos[b] + j``.  All k rows' K/V are written first (rows at index >=
+    ``n_valid`` route to scratch page 0), then one kernel call attends the
+    whole ``[slot, k]`` block with a per-row causal mask.  Rejected rows
+    need no undo: they are overwritten when the slot's position reaches
+    them."""
+    b, kb, _ = x.shape
+    pos, n_valid = cache["pos"], cache["n_valid"]
+    page_table = cache["page_table"]
+    ps = cache["k"].shape[1]
+    positions = pos[:, None] + torch.arange(kb, dtype=torch.int32,
+                                            device=x.device)[None]   # [b, k]
+    q, k, v = _project_qkv(cfg, p, ctx, x, positions)
+    quantizer = kvq.from_cache(cache)
+    logical = torch.clamp(positions // ps, 0, page_table.shape[1] - 1).long()
+    page = torch.gather(page_table, 1, logical)
+    valid = (torch.arange(kb, device=x.device)[None] < n_valid[:, None])
+    page_idx = torch.where(valid, page, torch.zeros_like(page))
+    _scatter(cache, quantizer.quantize(k, v), page_idx.long(),
+             (positions % ps).long())
+    o = _read(cfg, window_flag, q, cache, page_table, pos, quantizer)
+    o = o.reshape(b, kb, cfg.n_heads * cfg.head_dim)
     return ctx("attn_out", o, p["wo"]), cache

@@ -1,4 +1,5 @@
-"""The dense decoder: parameter init and the two paged serving steps.
+"""The dense decoder: parameter init, the eager full-sequence ``forward``
+(calibration) and the three paged serving steps.
 
 Counterpart of the dense family of ``repro/models/transformer.py``.  The
 reference scans over ``[L, ...]``-stacked layers; here the layer loop is a
@@ -96,9 +97,10 @@ def _layer_caches(kv: dict, i: int):
     return {n: a[i] for n, a in kv.items()}
 
 
-def _block(cfg, lp, ctx, x, cache, attend, window_flag):
+def _block(cfg, lp, ctx, x, attend):
+    """One pre-norm layer; ``attend(p, ctx, h)`` is the attention flavour."""
     h = apply_norm(cfg, lp["ln1"], x)
-    a, _ = attend(cfg, lp["attn"], ctx, h, cache, window_flag=window_flag)
+    a = attend(lp["attn"], ctx, h)
     if cfg.sandwich_norm:
         a = apply_norm(cfg, lp["ln1b"], a)
     x = x + a
@@ -109,18 +111,43 @@ def _block(cfg, lp, ctx, x, cache, attend, window_flag):
     return x + m
 
 
-def _run(cfg, params, x, kv, routing, ctx, attend):
+def _head(cfg, params, x):
+    x = apply_norm(cfg, params["ln_f"], x)
+    logits = x @ params["embed"].T.to(x.dtype)
+    return softcap(logits, cfg.final_softcap)
+
+
+def _run(cfg, params, x, kv, routing, ctx, step):
     if cfg.family != "dense":
         raise ValueError(f"paged serving supports the dense family, not "
                          f"{cfg.family}")
     ctx = ctx or FpCtx()
     for i, (lp, kind) in enumerate(zip(params["layers"], cfg.blocks)):
         cache = {**_layer_caches(kv, i), **routing}
-        x = _block(cfg, lp, _Named(ctx, f"layer{i}/"), x, cache, attend,
-                   kind == "local")
-    x = apply_norm(cfg, params["ln_f"], x)
-    logits = x @ params["embed"].T.to(x.dtype)
-    return softcap(logits, cfg.final_softcap)
+        attend = (lambda p, c, h, cache=cache, flag=kind == "local":
+                  step(cfg, p, c, h, cache, window_flag=flag)[0])
+        x = _block(cfg, lp, _Named(ctx, f"layer{i}/"), x, attend)
+    return _head(cfg, params, x)
+
+
+def forward(cfg: ModelConfig, params, tokens, ctx=None) -> dict:
+    """Full-sequence eager forward of the dense family (the reference's
+    ``forward(..., scan=False)``): sites carry ``layer{i}/`` names, so a
+    ``CollectCtx`` attributes calibration stats per layer, and each
+    layer's attention reports its K/V to the KV observer.  tokens [b, s].
+    Returns {"logits": [b, s, V]}."""
+    if cfg.family != "dense":
+        raise ValueError(f"the port's forward runs the dense family, not "
+                         f"{cfg.family}")
+    ctx = ctx or FpCtx()
+    x = _embed(cfg, params, tokens)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for i, (lp, kind) in enumerate(zip(params["layers"], cfg.blocks)):
+        attend = (lambda p, c, h, flag=kind == "local":
+                  A.attention(cfg, p, c, h, positions, window_flag=flag))
+        x = _block(cfg, lp, _Named(ctx, f"layer{i}/"), x, attend)
+    return {"logits": _head(cfg, params, x)}
 
 
 def decode_step_paged(cfg: ModelConfig, params, tokens, kv: dict,
@@ -134,6 +161,22 @@ def decode_step_paged(cfg: ModelConfig, params, tokens, kv: dict,
     x = _embed(cfg, params, tokens)
     logits = _run(cfg, params, x, kv, {"page_table": page_table, "pos": pos},
                   ctx, A.attention_decode_paged)
+    return logits, kv
+
+
+def decode_verify_paged(cfg: ModelConfig, params, tokens, kv: dict,
+                        page_table, pos, n_valid, ctx=None
+                        ) -> Tuple[torch.Tensor, dict]:
+    """Speculative verify: score a ``[slot, k]`` block of draft tokens for
+    the whole pool in one call.  tokens [b, k] (per slot, the last
+    committed token then up to k - 1 drafts; rows past ``n_valid[b]`` are
+    padding); ``kv`` / ``page_table`` / ``pos`` as in
+    :func:`decode_step_paged`, ``pos`` the first row's position; ``n_valid``
+    [b] int32.  Returns (logits [b, k, V], kv): ``logits[b, j]`` is the
+    next-token distribution after ``tokens[b, :j+1]``."""
+    x = _embed(cfg, params, tokens)
+    routing = {"page_table": page_table, "pos": pos, "n_valid": n_valid}
+    logits = _run(cfg, params, x, kv, routing, ctx, A.attention_verify_paged)
     return logits, kv
 
 

@@ -6,18 +6,24 @@ npz per group plus ``meta.json``), so the port serves bundles the JAX
 package wrote.  :func:`pack_kernel_buffers` packs a fused-backend policy's
 per-site kernel buffers from the port's own params and calibrated masks,
 mirroring the reference's ``_pack_kernel_buffers``, so the port can also
-build an artifact without JAX.  Calibration itself is a ``CollectCtx``
-pass (``repro_torch.core.context``); ``quantize_model`` and ``save`` are a
-later slice.
+build an artifact without JAX.  :func:`calibrate_model` is the
+reference's calibration pass (``_run_calibration``): a ``CollectCtx``
+over the eager dense ``forward``, with a ``KVCalibCollector`` installed
+as the KV observer, so one set of forwards yields the matmul-site stats
+and the int4 KV pages' ``kv_calib``.  ``quantize_model`` and ``save`` are
+a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.core.calibrate import calibrate
+from repro_torch.core.outliers import CalibrationStats
 from repro_torch.core.policy import SitePolicy, as_policy
 from repro_torch.kernels import dispatch
 
@@ -116,10 +122,35 @@ def pack_kernel_buffers(cfg, params, policy, masks: Dict[str, np.ndarray]
     return buffers
 
 
-def build_artifact(cfg, params, policy, masks: Dict[str, np.ndarray]
+def calibrate_model(cfg, params, batches: Iterable, device="cuda"
+                    ) -> Tuple[CalibrationStats, Optional[Dict[str, np.ndarray]]]:
+    """Eager calibration pass over ``batches`` ({"tokens": [b, s]} each):
+    returns (matmul-site ``CalibrationStats``, ``kv_calib`` section or
+    None).  The same forwards feed both: the ``CollectCtx`` sees every
+    matmul input, the KV observer every layer's post-RoPE K/V."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import kvq
+
+    def forward(p, batch, ctx):
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=device)
+        return T.forward(cfg, p, tokens, ctx)
+
+    collector = kvq.KVCalibCollector()
+    A.set_kv_observer(collector)
+    try:
+        stats, _, _ = calibrate(forward, params, batches)
+    finally:
+        A.set_kv_observer(None)
+    return stats, kvq.build_kv_calib(collector)
+
+
+def build_artifact(cfg, params, policy, masks: Dict[str, np.ndarray], *,
+                   kv_calib: Optional[Dict[str, np.ndarray]] = None
                    ) -> QuantArtifact:
     """A servable artifact from the port's params: the policy, the masks
-    of its quantized sites and their packed kernel buffers."""
+    of its quantized sites, their packed kernel buffers and, for int4 KV
+    pages, the ``kv_calib`` section from :func:`calibrate_model`."""
     policy = as_policy(policy)
     buffers = pack_kernel_buffers(cfg, params, policy, masks)
     kept = {s: np.asarray(m) for s, m in masks.items()
@@ -127,4 +158,5 @@ def build_artifact(cfg, params, policy, masks: Dict[str, np.ndarray]
     return QuantArtifact(policy=policy, masks=kept, kernel_buffers=buffers,
                          params=params,
                          meta={"n_sites": len(kept),
-                               "n_fused_sites": len(buffers)})
+                               "n_fused_sites": len(buffers)},
+                         kv_calib=dict(kv_calib or {}))

@@ -7,13 +7,19 @@ reference wrote or built by the port); ``ServeEngine(cfg, params,
 quant=spec)`` serves raw params under a quant spec (None = fp).  The
 engine owns a :class:`~repro_torch.serve.pool.PagePool` that persists
 across ``generate`` calls and hands a fresh
-:class:`~repro_torch.serve.scheduler.Scheduler` the two step functions.
-Everything runs eagerly on ``device`` (default ``"cuda"``); the page and
-chunk budgets keep the reference's pow2 bucket grid, which is what a
-CUDA-graph capture of the steps would be keyed on.
+:class:`~repro_torch.serve.scheduler.Scheduler` the three step functions.
+Everything runs eagerly on ``device`` (default ``"cuda"``); the page,
+chunk and verify budgets keep the reference's pow2 bucket grid, which is
+what a CUDA-graph capture of the steps would be keyed on.
 
-Not ported yet: speculative decoding, tensor parallelism, the flight
-recorder and quality observers, int4 pages.
+KV pages are fp, int8 or int4 (``kv_mode``); int4 pages take the
+artifact's ``kv_calib`` section for their outlier redistribution.
+``spec_mode="ngram"`` turns on self-speculative decoding: the scheduler
+drafts up to ``spec_k - 1`` tokens per slot and one
+``decode_verify_paged`` call scores every slot's draft block.
+
+Not ported yet: tensor parallelism, the flight recorder and quality
+observers.
 """
 from __future__ import annotations
 
@@ -60,7 +66,8 @@ class ServeEngine:
                  n_pages: Optional[int] = None,
                  cache_dtype=torch.bfloat16, prefix_sharing: bool = True,
                  prefill_chunk: int = 32, prefill_slots: int = 2,
-                 prefill_aging: float = 1.0, device="cuda"):
+                 prefill_aging: float = 1.0, spec_mode: str = "off",
+                 spec_k: int = 4, device="cuda"):
         if cfg.family != "dense":
             raise ValueError(f"the engine serves dense decoders, not {cfg.family}")
         if isinstance(params, QuantArtifact):
@@ -70,6 +77,8 @@ class ServeEngine:
             quant, params = params, params.params
             if params is None:
                 raise ValueError("artifact carries no weights to serve")
+        # the artifact's KV-page calibration (int4 outlier redistribution)
+        kv_calib = getattr(quant, "kv_calib", None) or None
         self.device = torch.device(device)
         self.cfg = cfg
         self.params = as_port_params(cfg, params, self.device)
@@ -89,10 +98,16 @@ class ServeEngine:
         self.prefill_aging = float(prefill_aging)
         self.pool = PagePool(cfg, max_batch, s_max, page_size=page_size,
                              n_pages=n_pages, mode=kv_mode, dtype=cache_dtype,
-                             device=self.device)
+                             kv_calib=kv_calib, device=self.device)
+        if spec_mode not in ("off", "ngram"):
+            raise ValueError(f"unknown spec_mode {spec_mode!r} "
+                             "(expected 'off' or 'ngram')")
+        self.spec_mode = spec_mode
+        self.spec_k = int(spec_k)
         self.metrics = ServeMetrics()
         self.decode_buckets = set()      # page-budget buckets seen (lifetime)
         self.prefill_buckets = set()     # (chunk, page) bucket pairs (lifetime)
+        self.verify_buckets = set()      # (k, page) bucket pairs (lifetime)
 
     # -- scheduler plumbing ---------------------------------------------------
 
@@ -111,16 +126,24 @@ class ServeEngine:
                                          page_table, pos, self.ctx)
         return torch.argmax(logits[:, -1, : self.cfg.vocab_size], dim=-1), kv
 
+    @torch.no_grad()
+    def _verify_pool(self, tokens, kv, page_table, pos, n_valid):
+        self.verify_buckets.add((int(tokens.shape[1]), int(page_table.shape[1])))
+        logits, kv = T.decode_verify_paged(self.cfg, self.params, tokens, kv,
+                                           page_table, pos, n_valid, self.ctx)
+        return torch.argmax(logits[:, :, : self.cfg.vocab_size], dim=-1), kv
+
     # -- public ---------------------------------------------------------------
 
     def scheduler(self) -> Scheduler:
         """A fresh scheduler over this engine's (persistent) page pool."""
         return Scheduler(self.pool, self._prefill_pool, self._decode_pool,
-                         metrics=ServeMetrics(),
+                         self._verify_pool, metrics=ServeMetrics(),
                          prefix_sharing=self.prefix_sharing,
                          prefill_chunk=self.prefill_chunk,
                          prefill_slots=self.prefill_slots,
-                         prefill_aging=self.prefill_aging)
+                         prefill_aging=self.prefill_aging,
+                         spec_mode=self.spec_mode, spec_k=self.spec_k)
 
     def generate(self, requests: List[Request],
                  arrivals: Optional[Sequence[int]] = None) -> List[Request]:

@@ -4,13 +4,19 @@
 Every slot's K/V live in fixed-size pages; a sequence owns
 ``ceil(len/ps)`` pages, allocated and freed in O(1) from a free list, and
 the serving steps route through a per-slot page table.  Page modes come
-from :mod:`repro_torch.serve.kvq` (fp pages in ``dtype``, or int8 pages
-with per-(position, head) f32 scales).
+from :mod:`repro_torch.serve.kvq`: fp pages in ``dtype``, int8 pages
+with per-(position, head) f32 scales, or int4 MUXQ'd nibble pages (pass
+the artifact's ``kv_calib`` section for the calibrated redistribution;
+uncalibrated int4 is plain symmetric int4).
 
 Layout (``L`` = attention layers):
 
   k/v        [L, n_pages, page_size, kvh, dh]   device tensors
-  k/v_scale  [L, n_pages, page_size, kvh, 1]    (int8 pages)
+                                                (int4: [..., dh//2] int8)
+  k/v_scale  [L, n_pages, page_size, kvh, 1]    (int8: f32; int4: bf16)
+  k/v_redist [L, kvh, dh] f32                   (int4 only; per-head
+                                                 redistribution rows, not
+                                                 pages)
   page_table [n_slots, pages_per_slot] int32    host numpy, 0 = unallocated
   refcount   [n_pages] int32                    host numpy
 
@@ -50,7 +56,8 @@ class PagePool:
 
     def __init__(self, cfg: ModelConfig, n_slots: int, s_max: int, *,
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 mode: str = "int8", dtype=torch.bfloat16, device="cuda"):
+                 mode: str = "int8", dtype=torch.bfloat16,
+                 kv_calib: Optional[dict] = None, device="cuda"):
         if mode not in kvq.KV_MODES:
             raise ValueError(f"unknown page mode {mode!r}")
         self.cfg, self.mode, self.dtype = cfg, mode, dtype
@@ -63,9 +70,15 @@ class PagePool:
         if self.n_pages < 2:
             raise ValueError("pool needs at least one allocatable page")
         L, kvh, dh = n_attn_layers(cfg), cfg.n_kv_heads, cfg.head_dim
-        self.quantizer = kvq.make_quantizer(mode, dtype=dtype)
+        self.quantizer = kvq.make_quantizer(mode, kvh=kvh, dh=dh, dtype=dtype,
+                                            calib=kv_calib)
         self.kv: Dict[str, torch.Tensor] = self.quantizer.page_arrays(
             L, self.n_pages, page_size, kvh, dh, self.device)
+        # keys whose second axis indexes pages: copy-on-write and the read
+        # pricing touch only these; the rest of self.kv is per-pool state
+        # (the int4 redistribution rows, [L, kvh, dh])
+        self._page_keys = tuple(self.kv)
+        self.kv.update(self.quantizer.pool_state(L, kvh, dh, self.device))
         self.page_table = np.zeros((n_slots, self.pages_per_slot), np.int32)
         self.refcount = np.zeros(self.n_pages, np.int32)
         self._free = list(range(self.n_pages - 1, 0, -1))  # pop() -> page 1 first
@@ -150,8 +163,8 @@ class PagePool:
             self.alloc_failures += 1
             return False
         new = self._free.pop()
-        for arr in self.kv.values():        # every layer at once, in place
-            arr[:, new] = arr[:, old]
+        for name in self._page_keys:        # every layer at once, in place
+            self.kv[name][:, new] = self.kv[name][:, old]
         self.refcount[old] -= 1
         self.refcount[new] = 1
         self.page_table[slot, page_idx] = new
@@ -247,13 +260,18 @@ class PagePool:
         return bucket_pow2(n_needed, self.pages_per_slot)
 
     def page_read_bytes(self) -> int:
-        """Bytes one page costs to read across all layers (K + V + scales)."""
-        return sum(a.numel() * a.element_size()
-                   for a in self.kv.values()) // self.n_pages
+        """Bytes one page costs to read across all layers (K + V + scales;
+        int4 counts the packed nibble bytes).  Only page-indexed arrays
+        count: the int4 redistribution rows are per-pool constants."""
+        return sum(self.kv[n].numel() * self.kv[n].element_size()
+                   for n in self._page_keys) // self.n_pages
 
     # -- accounting ----------------------------------------------------------
 
     def cache_bytes(self) -> int:
+        """Bytes the pool holds on the device: every page of every layer,
+        live or free, plus the int4 redistribution rows (the reference's
+        ``kvcache.cache_bytes`` counts them too)."""
         return sum(a.numel() * a.element_size() for a in self.kv.values())
 
     def stats(self, slot_lens: Optional[Dict[int, int]] = None) -> Dict[str, float]:

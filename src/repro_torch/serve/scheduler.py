@@ -13,13 +13,18 @@ token streams and step counters match the reference engine's.
     vector, reading only the bucketed page budget of the longest live
     sequence (chunk and page budgets bucket to powers of two);
   * copy-on-write before a decode token lands in a shared page;
+  * self-speculative decoding (``spec_mode="ngram"``): a host-side
+    prompt-lookup proposer drafts up to ``spec_k - 1`` tokens per live
+    slot from its own history (:mod:`repro_torch.serve.spec`), one verify
+    call scores every slot's ``[slot, k]`` block, and greedy acceptance
+    keeps each slot's longest agreeing draft prefix;
   * preemption of the sequence holding the longest token range when the
     pool is exhausted, with true chunk-boundary resume for mid-prefill
     victims (their written pages travel with the queue entry).
 
 The scheduler's state is host-side numpy; device tensors are built only
-at the step call sites.  Speculative decoding, the flight recorder and the
-quality observers of the reference are not ported yet.
+at the step call sites.  The flight recorder and the quality observers
+of the reference are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import tokenizer as tok
+from repro_torch.serve import spec
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.pool import PagePool, bucket_pow2
 
@@ -48,6 +54,9 @@ class _Slot:
     pre_pos: int = 0            # next prompt position to compute
     pre_start: int = 0          # where this slot's chunked compute began
     write_from: int = 0         # first position not covered by shared pages
+    # full known token stream (prompt + generated), the n-gram proposer's
+    # lookup corpus — the last entry is the next decode input
+    hist: List[int] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -67,16 +76,21 @@ class Scheduler:
     ``prefill_fn(tokens [n_slots, C], kv, page_table [n_slots, pb], start,
     write_lo, write_hi) -> (next_tokens [n_slots, C], kv)`` and
     ``decode_fn(tokens [n_slots, 1], kv, page_table, pos) ->
-    (next_tokens [n_slots], kv)`` take device tensors."""
+    (next_tokens [n_slots], kv)`` and ``verify_fn(tokens [n_slots, k], kv,
+    page_table, pos, n_valid) -> (next_tokens [n_slots, k], kv)`` (needed
+    when ``spec_mode != "off"``) take device tensors."""
 
     def __init__(self, pool: PagePool, prefill_fn: Callable,
-                 decode_fn: Callable, *, eos: int = tok.EOS,
+                 decode_fn: Callable, verify_fn: Optional[Callable] = None,
+                 *, eos: int = tok.EOS,
                  metrics: Optional[ServeMetrics] = None,
                  prefix_sharing: bool = True, prefill_chunk: int = 32,
-                 prefill_slots: int = 2, prefill_aging: float = 1.0):
+                 prefill_slots: int = 2, prefill_aging: float = 1.0,
+                 spec_mode: str = "off", spec_k: int = 4):
         self.pool = pool
         self.prefill = prefill_fn
         self.decode = decode_fn
+        self.verify = verify_fn
         self.eos = eos
         self.metrics = metrics if metrics is not None else ServeMetrics()
         self.prefix_sharing = prefix_sharing
@@ -89,6 +103,16 @@ class Scheduler:
         self.prefill_chunk = int(prefill_chunk)
         self.prefill_slots = int(prefill_slots)
         self.prefill_aging = float(prefill_aging)
+        if spec_mode not in spec.SPEC_MODES:
+            raise ValueError(f"unknown spec_mode {spec_mode!r} "
+                             f"(expected one of {spec.SPEC_MODES})")
+        if spec_mode != "off" and verify_fn is None:
+            raise ValueError("spec_mode needs a verify_fn (the multi-token "
+                             "verify step)")
+        if spec_mode != "off" and spec_k < 2:
+            raise ValueError(f"spec_k must be >= 2, got {spec_k}")
+        self.spec_mode = spec_mode
+        self.spec_k = int(spec_k)
         self._step = 0
         n = pool.n_slots
         self.slots: List[Optional[_Slot]] = [None] * n
@@ -162,9 +186,16 @@ class Scheduler:
                 break
 
             did_prefill = self._prefill_chunk_step(step_clock)
-            self._ensure_pages(queue)
+            # n-gram drafts first (host-side, no pool effects), so the
+            # page-backing pass can cover each slot's whole k-token write
+            drafts = (self._propose_drafts()
+                      if self.spec_mode != "off" else {})
+            self._ensure_pages(
+                queue, {i: 1 + len(d) for i, d in drafts.items()})
             active = [i for i, s in enumerate(self.slots)
                       if s is not None and not s.prefilling]
+            # page-backing may have preempted (or finished) a drafted slot
+            drafts = {i: d for i, d in drafts.items() if i in set(active)}
             if active:
                 counts = self.pool.live_page_counts()
                 bucket = self.pool.bucket_pages(max(int(counts[i])
@@ -179,19 +210,23 @@ class Scheduler:
                     table = self._dev(table)
                 else:
                     table = self.pool.table()[:, :bucket].contiguous()
-                nxt, new_kv = self.decode(
-                    self._dev(self.last_tok)[:, None], self.pool.state(),
-                    table, self._dev(self.pos))
-                self.pool.adopt(new_kv)
-                outs = nxt.cpu().numpy()
-                m.decode_steps += 1
-                m.decode_slot_steps += len(active)
-                m.record_read(self.pool, bucket)
-                if did_prefill:
-                    m.interleaved_steps += 1
-                for i in active:
-                    self.pos[i] += 1
-                    self._post_token(i, int(outs[i]))
+                if drafts:
+                    self._verify_step(active, drafts, table, bucket,
+                                      did_prefill)
+                else:
+                    nxt, new_kv = self.decode(
+                        self._dev(self.last_tok)[:, None], self.pool.state(),
+                        table, self._dev(self.pos))
+                    self.pool.adopt(new_kv)
+                    outs = nxt.cpu().numpy()
+                    m.decode_steps += 1
+                    m.decode_slot_steps += len(active)
+                    m.record_read(self.pool, bucket)
+                    if did_prefill:
+                        m.interleaved_steps += 1
+                    for i in active:
+                        self.pos[i] += 1
+                        self._post_token(i, int(outs[i]))
             step_clock += 1
             live = {i: (int(self.pos[i]) if not s.prefilling else s.pre_pos)
                     for i, s in enumerate(self.slots) if s}
@@ -307,6 +342,12 @@ class Scheduler:
                 self.metrics.observe("queue_wait_steps",
                                      step_clock - entry.arrive_step)
             st.write_from = write_from
+            # proposer corpus: prompt + every generated token (a resumed
+            # request's last token is the next decode input — ids stop one
+            # short of it, the stream does not)
+            st.hist = [int(t) for t in ids]
+            if req.out_tokens:
+                st.hist.append(int(req.out_tokens[-1]))
             if resume_from is not None:
                 st.pre_pos = resume_from
             elif write_from < len(ids):
@@ -420,12 +461,84 @@ class Scheduler:
                 return                  # one-token request: done at prefill
         self.last_tok[slot] = st.req.out_tokens[-1]
 
+    # -- speculative decoding -------------------------------------------------
+
+    def _propose_drafts(self) -> dict:
+        """Host-side n-gram drafts for every live decode slot, clamped so a
+        slot's 1 + draft tokens never outrun its cache capacity or its
+        ``max_new_tokens`` budget.  Empty when nothing matches: the step
+        then runs the plain one-token decode."""
+        drafts = {}
+        for i, st in enumerate(self.slots):
+            if st is None or st.prefilling:
+                continue
+            room_cap = self.pool.capacity - int(self.pos[i]) - 1
+            room_out = st.req.max_new_tokens - len(st.req.out_tokens) - 1
+            max_draft = min(self.spec_k - 1, room_cap, room_out)
+            if max_draft <= 0:
+                continue
+            d = spec.propose_ngram(st.hist, max_draft)
+            if d:
+                drafts[i] = d
+        return drafts
+
+    def _verify_step(self, active, drafts, table, bucket,
+                     did_prefill) -> None:
+        """One batched verify over the pool: every active slot's committed
+        token + draft rides a ``[slot, k]`` block (k bucketed to pow2);
+        greedy acceptance emits each slot's longest agreeing draft prefix
+        plus the model's own next token.  Per-slot ``pos`` advances only
+        over emitted tokens; rejected page rows are overwritten later."""
+        m = self.metrics
+        kb = bucket_pow2(1 + max(len(d) for d in drafts.values()),
+                         self.spec_k)
+        n = self.pool.n_slots
+        toks = np.zeros((n, kb), np.int32)
+        n_valid = np.zeros(n, np.int32)
+        for i in active:
+            d = drafts.get(i, [])
+            toks[i, 0] = self.last_tok[i]
+            if d:
+                toks[i, 1:1 + len(d)] = d
+            n_valid[i] = 1 + len(d)
+        nxt, new_kv = self.verify(
+            self._dev(toks), self.pool.state(), table, self._dev(self.pos),
+            self._dev(n_valid))
+        self.pool.adopt(new_kv)
+        outs = nxt.cpu().numpy()                # [n_slots, kb]
+        m.decode_steps += 1
+        m.decode_slot_steps += len(active)
+        m.spec_verify_steps += 1
+        m.record_read(self.pool, bucket)
+        if did_prefill:
+            m.interleaved_steps += 1
+        for i in active:
+            d = drafts.get(i, [])
+            acc = spec.accept_length(d, outs[i])
+            m.spec_proposed += len(d)
+            m.spec_accepted += acc
+            m.decode_steps_saved += acc
+            if d:
+                m.observe("accepted_draft_len", acc)
+            # emitted stream = accepted draft prefix + the model's own
+            # next token after it — exactly sequential greedy decode
+            for t in outs[i, :acc + 1]:
+                self.pos[i] += 1
+                self._post_token(i, int(t))
+                if self.slots[i] is None:
+                    break                       # EOS / budget mid-block
+
     # -- paging / preemption --------------------------------------------------
 
-    def _ensure_pages(self, queue) -> None:
-        """Back every live decode slot's next write position with a private
-        page; on exhaustion preempt the slot holding the longest token
-        range and retry."""
+    def _ensure_pages(self, queue, spans: Optional[dict] = None) -> None:
+        """Back every live decode slot's next write position(s) with
+        private pages; on exhaustion preempt the slot holding the longest
+        token range and retry.  ``spans`` widens a slot's write window to
+        a speculative k-token block (positions ``pos .. pos+span-1`` may
+        cross a page boundary; every touched page is made private before
+        the write, or a rejected draft row would corrupt a prefix-sharing
+        sibling)."""
+        spans = spans or {}
         ps = self.pool.page_size
         for i in range(len(self.slots)):
             if self.slots[i] is None or self.slots[i].prefilling:
@@ -433,15 +546,20 @@ class Scheduler:
             if self.pos[i] >= self.pool.capacity:
                 self._finish(i)
                 continue
-            page_idx = int(self.pos[i]) // ps
-            while self.slots[i] is not None \
-                    and not self.pool.ensure_writable(i, page_idx):
-                live = [j for j, s in enumerate(self.slots) if s is not None]
-                victim = max(live, key=self._held_tokens)
-                free0 = self.pool.pages_free
-                self._preempt(victim, queue)
-                if self.pool.pages_free <= free0:
-                    self._reclaim_detached(queue)
+            lo = int(self.pos[i]) // ps
+            hi = (int(self.pos[i]) + spans.get(i, 1) - 1) // ps
+            for page_idx in range(lo, hi + 1):
+                while self.slots[i] is not None \
+                        and not self.pool.ensure_writable(i, page_idx):
+                    live = [j for j, s in enumerate(self.slots)
+                            if s is not None]
+                    victim = max(live, key=self._held_tokens)
+                    free0 = self.pool.pages_free
+                    self._preempt(victim, queue)
+                    if self.pool.pages_free <= free0:
+                        self._reclaim_detached(queue)
+                if self.slots[i] is None:
+                    break               # preempted while backing its pages
 
     def _held_tokens(self, slot: int) -> int:
         st = self.slots[slot]
@@ -469,6 +587,7 @@ class Scheduler:
         st = self.slots[slot]
         req = st.req
         req.out_tokens.append(token)
+        st.hist.append(token)
         self.last_tok[slot] = token
         self.metrics.tokens_out += 1
         stream = getattr(req, "stream", None)

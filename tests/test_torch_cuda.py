@@ -11,11 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.muxq_gemm import muxq_gemm
 from repro_torch.kernels.quantize import rowwise_quantize, rowwise_quantize_plain
 from repro_torch.serve.kvcache import quantize_kv
+from repro_torch.serve.kvq import Int4KVQuantizer, redist_from_mask
 
 
 def _outlier_x(rng, m, k, idx, mag=40.0):
@@ -83,6 +85,20 @@ def test_cuda_plain_kv_quantize_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_cuda_plain_int4_quantize_matches_cpu(cuda):
+    """Int4 pages: bf16 scales and packed codes of the plain quantizer are
+    the same on the card as on the CPU (the scale divides by a tensor)."""
+    x = torch.randn(64, 16, 2, 64, generator=torch.Generator().manual_seed(1))
+    redist = torch.ones(2, 64)
+    redist[1, [3, 40]] = 4.0
+    on_card = Int4KVQuantizer(redist.to(cuda), redist.to(cuda)).quantize(
+        x.to(cuda), x.to(cuda))
+    on_cpu = Int4KVQuantizer(redist, redist).quantize(x, x)
+    for name, t in on_cpu.items():
+        assert torch.equal(on_card[name].cpu(), t), name
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 1024, 2304), (4, 3584, 768), (64, 1024, 3072)])
 def test_cuda_muxq_gemm_matches_plain(cuda, m, k, n):
     x, w, bs, sx, sw = _gemm_inputs(m, m, k, n, 512)
@@ -108,3 +124,54 @@ def test_cuda_paged_attention_matches_plain(cuda, mode, sq):
     ok = PA.paged_attention_decode(*t, **kw)
     op = PA.paged_attention_plain(*t, **kw)
     torch.testing.assert_close(ok, op, rtol=0, atol=1e-4)  # f32 sum order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,g", [(1, 1), (4, 7), (32, 7)])
+def test_cuda_paged_attention_int4_matches_plain(cuda, qdt, sq, g):
+    """Int4 pages (packed nibbles, bf16 scales, a non-identity redist row):
+    atol 1e-4 in f32 (sum order), 2e-2 with bf16 q (the plain version's
+    bf16 einsums)."""
+    q, k, v, table, pos = _paged_inputs(sq + g, sq=sq, h=2 * g)
+    mask = np.zeros((2, 64), bool)
+    mask[1, [3, 40]] = True
+    redist = torch.from_numpy(redist_from_mask(mask)).to(cuda)
+    t = [torch.from_numpy(a).to(cuda) for a in (q, k, v, table, pos)]
+    parts = Int4KVQuantizer(redist, redist).quantize(t[1], t[2])
+    kw = {"k_scale": parts["k_scale"], "v_scale": parts["v_scale"],
+          "k_redist": redist, "v_redist": redist}
+    args = (t[0].to(qdt), parts["k"], parts["v"], t[3], t[4])
+    ok = PA.paged_attention_decode(*args, **kw)
+    op = PA.paged_attention_plain(*args, **kw)
+    assert torch.isfinite(ok).all()
+    atol = 1e-4 if qdt == torch.float32 else 2e-2
+    torch.testing.assert_close(ok.float(), op.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_refuses_a_block_over_shared_memory(cuda):
+    """sq * g * dh above the card's 227 KB of shared memory: the launcher's
+    opt-in fails and the wrapper raises; no launch is skipped silently."""
+    q, k, v, table, pos = _paged_inputs(0, sq=64, h=16, kvh=2)
+    t = [torch.from_numpy(a).to(cuda) for a in (q, k, v, table, pos)]
+    with pytest.raises(RuntimeError, match="cudaError"):
+        PA.paged_attention_decode(*t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=64, softcap=30.0)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, kw):
+    """GQA 8 over 2 heads, ragged sq/sk (not multiples of the tile): atol
+    2e-4 in f32, 2e-2 in bf16."""
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 200, 8, 64, generator=gen).to(cuda, dtype)
+    k = torch.randn(2, 200, 2, 64, generator=gen).to(cuda, dtype)
+    v = torch.randn(2, 200, 2, 64, generator=gen).to(cuda, dtype)
+    ok = FA.flash_attention(q, k, v, **kw)
+    op = FA.flash_attention_plain(q, k, v, **kw)
+    atol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert ok.dtype == dtype and torch.isfinite(ok).all()
+    torch.testing.assert_close(ok.float(), op.float(), rtol=0, atol=atol)

@@ -27,6 +27,7 @@ from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.muxq_gemm import accumulate_plain, muxq_gemm
 from repro_torch.kernels.quantize import rowwise_quantize
 from repro_torch.serve.kvcache import quantize_kv
+from repro_torch.serve.kvq import Int4KVQuantizer
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -256,15 +257,27 @@ def test_paged_attention_window_and_softcap_match_reference():
 
 
 def test_paged_impl_selection_and_int4_refusal():
+    """Unknown impls are refused; int4 pages, refused by the first slice,
+    are now read: the result equals attention over the pages' dequantized
+    values (atol 1e-5, f32)."""
     with pytest.raises(ValueError, match="unknown paged impl"):
         PA.set_paged_impl("pallas")
     prev = PA.set_paged_impl("ref")
     assert PA.set_paged_impl(prev) == "ref"
     q, k, v, table, pos = _paged_inputs(0)
-    with pytest.raises(NotImplementedError, match="int4"):
-        PA.paged_attention_decode(*(torch.from_numpy(a) for a in
-                                    (q, k, v, table, pos)),
-                                  k_redist=torch.ones(2, 16))
+    redist = torch.ones(2, 16)
+    redist[0, 3] = 4.0
+    quant = Int4KVQuantizer(redist, redist)
+    parts = quant.quantize(torch.from_numpy(k), torch.from_numpy(v))
+    assert parts["k"].shape == (10, 4, 2, 8) and parts["k_scale"].dtype == torch.bfloat16
+    tq, tt, tp = (torch.from_numpy(a) for a in (q, table, pos))
+    o4 = PA.paged_attention_decode(tq[:, 0], parts["k"], parts["v"], tt, tp,
+                                   k_scale=parts["k_scale"],
+                                   v_scale=parts["v_scale"], k_redist=redist,
+                                   v_redist=redist)
+    kd, vd = quant.dequantize(parts, torch.float32)
+    od = PA.paged_attention_decode(tq[:, 0], kd, vd, tt, tp)
+    np.testing.assert_allclose(o4.numpy(), od.numpy(), rtol=0, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

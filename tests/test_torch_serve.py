@@ -278,8 +278,21 @@ def test_pool_alloc_share_cow_release(model):
     assert pool.pages_free == 8 and not pool.page_table.any()
     with pytest.raises(ValueError, match="pages_per_slot"):
         pool.admit(0, 33)
-    with pytest.raises(NotImplementedError, match="int4"):
-        PagePool(model["tcfg"], 1, 16, mode="int4", device="cpu")
+    # int4 pages (refused by the first slice): packed pages, bf16 scales
+    # and [L, kvh, dh] redistribution rows, which copy-on-write leaves alone
+    p4 = PagePool(model["tcfg"], 2, 16, page_size=8, mode="int4", device="cpu")
+    L, kvh, dh = model["tcfg"].n_layers, model["tcfg"].n_kv_heads, 16
+    assert p4.kv["k"].shape == (L, p4.n_pages, 8, kvh, dh // 2)
+    assert p4.kv["k_scale"].dtype == torch.bfloat16
+    assert p4.kv["k_redist"].shape == (L, kvh, dh)
+    p4.kv["k_redist"][:, 1, 2] = 4.0
+    redist = p4.kv["k_redist"].clone()
+    assert p4.admit(0, 8) and p4.admit(1, 8, share_from=0, shared_pages=1)
+    assert p4.ensure_writable(1, 0) and p4.cow_count == 1
+    assert torch.equal(p4.kv["k_redist"], redist)
+    assert p4.page_read_bytes() * 2 == PagePool(
+        model["tcfg"], 2, 16, page_size=8, mode="int8",
+        device="cpu").page_read_bytes()
 
 
 def test_quant_ctx_refuses_unported_backends(model):
