@@ -15,7 +15,10 @@ its seconds):
    sq in {1, 4, 32} x g in {1, 7}, f32 and bf16 q, ragged tables with
    scratch page 0, a non-identity redistribution row); ``flash_attention``
    at b 1, s 2048, h 14, kv 2, dh 64 (causal, f32 and bf16, and a
-   window-and-softcap case).
+   window-and-softcap case).  Every tolerance is elementwise (see the
+   constants below); a bf16 paged case is also held, one bf16 ulp wide,
+   against its f32 twin (the plain version in f32 on the kernel's own
+   bf16-rounded operands).
 3. Time each kernel (CUDA-graph replay after an L2 eviction), its plain
    version and a PyTorch yardstick beside the kernel's lower bound on this
    card, at the shapes the serving runs give it.
@@ -28,12 +31,14 @@ its seconds):
    outliers): calibrate through the port's dense ``forward`` (matmul
    sites and KV channels) and build the artifact with ``kv_calib``; hold
    the verify step's logits on int4 pages with the paged kernel against
-   its plain version in place (gated with fp weights, reported with the
-   fused MUXQ ctx); then, on the same weights with the residual branches
-   scaled down (so that the greedy stream repeats and n-gram drafts
-   match), serve 4 repetitive requests x 16 tokens on int4 pages with
-   speculation (k = 4), and the same requests on f32 pages without
-   speculation for comparison.
+   its plain version in place (with fp weights at 1e-3 of the logit scale;
+   with the fused MUXQ ctx against the spread that one-ulp nudges of the
+   plain attention make); then, on the same weights with the residual
+   branches scaled down (so that the greedy stream repeats and n-gram
+   drafts match), serve 4 repetitive requests x 16 tokens on int4 pages
+   with speculation (k = 4) -- at least one draft rejected, one prompt
+   repeated so that its pages are shared and copied on write -- and the
+   same requests on f32 pages without speculation for comparison.
 6. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
@@ -61,17 +66,28 @@ INT8_OPS_S = 1979e12
 BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
 
-BF16_RTOL = 2e-2    # bf16: the plain version rounds K/V, scores, probs to
-                    # bf16; tolerance 2e-2 x max(1, max |out|), as outlier
-                    # channels make outputs large
+# tolerances, elementwise: |kernel - reference| <= atol + rtol * |reference|
+BF16_ULP = 2.0 ** -7    # rtol of every bf16 case: one bf16 ulp of the element
+TWIN_ATOL = 1e-4        # bf16 q, against the f32 twin (the plain version in
+                        # f32 on the kernel's own bf16-rounded operands): only
+                        # f32 summation order and the output rounding differ.
+# bf16 q against the plain version, which rounds scores and probabilities to
+# bf16 (the kernel keeps them f32): atol = TWIN_ATOL + (1 + 2^-7) |twin -
+# plain|, the plain version's own rounding error at that element
+FP_PAGED_MAX = 2e-2     # bf16 fp pages: max abs err vs plain (also elementwise)
 F32_ATOL = 1e-4     # f32 paged attention: only the summation order differs
-FLASH_F32_ATOL = 2e-4   # f32 flash attention over 2048 keys (sum order)
+FLASH_F32_ATOL = 2e-4   # f32 flash attention over 2048 keys (sum order); bf16
+                        # flash: the plain version is f32 math rounded to bf16,
+                        # so the same atol plus one bf16 ulp
 SERVE_BRANCH_SCALE = 2e-3   # qwen2's served weights: attention and MLP
                             # output projections scaled down (phase 5)
 VERIFY_RTOL = 1e-3  # in-situ verify logits on int4 pages with fp weights,
                     # paged kernel vs plain, relative to max |logits|: the
                     # attention sums' order differs, and an ulp may move an
                     # int4 K/V code
+NUDGE_FACTOR = 2.0  # in-situ verify logits under fused MUXQ, kernel vs plain:
+                    # at most this x the plain-vs-plain spread that 1-ulp
+                    # nudges of every attention output make
 
 
 def smi_line() -> str:
@@ -206,22 +222,65 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     kern = {}
 
-    def record(name, **kw):
-        entry = {"kernel": name, **kw}
+    def record(name, vs="plain", **kw):
+        entry = {"kernel": name, "vs": vs, **kw}
         report["checks"].append(entry)
         kern.setdefault(name, {"max_abs_err": 0.0})
-        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"],
-                                        float(kw.get("max_abs_err", 0.0)))
+        if vs == "plain":
+            kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"],
+                                            float(kw.get("max_abs_err", 0.0)))
 
-    def held(name, out, plain, atol, **kw):
+    def held(name, out, ref, atol, rtol=0.0, cap=None, vs="plain", **kw):
+        """Elementwise |out - ref| <= atol + rtol * |ref| (``atol`` a number
+        or a tensor of ref's shape), all finite; ``cap`` bounds the max abs
+        error as well.  Records the max abs error and the largest share of
+        its element's limit that any element uses."""
         torch.cuda.synchronize()
-        if atol is None:            # bf16: relative to the output's scale
-            atol = BF16_RTOL * max(1.0, float(plain.float().abs().max()))
-        err = float((out.float() - plain.float()).abs().max())
-        if not (torch.isfinite(out).all() and err <= atol):
-            raise AssertionError(f"{name} {kw}: max abs err {err} > {atol}")
-        record(name, max_abs_err=err, atol=atol, **kw)
+        diff = (out.float() - ref.float()).abs()
+        lim = atol + rtol * ref.float().abs()
+        err = float(diff.max())
+        ratio = float((diff / lim.clamp_min(1e-30)).max())
+        atol_max = float(torch.as_tensor(atol).max())
+        if not (torch.isfinite(out).all() and bool((diff <= lim).all())
+                and (cap is None or err <= cap)):
+            raise AssertionError(
+                f"{name} {kw} vs {vs}: max abs err {err}, worst element at "
+                f"{ratio:.3f} x its limit (atol {atol_max:.3g} max, rtol "
+                f"{rtol}, cap {cap})")
+        record(name, vs=vs, max_abs_err=err, max_ratio=ratio,
+               atol_max=atol_max, rtol=rtol, cap=cap, **kw)
         return err
+
+    def f32_twin(args, kw):
+        """The plain version in f32 on the kernel's own operands for bf16 q:
+        q upcast; pages dequantized in the plain version's order and rounded
+        to bf16, as the kernel stages them, then passed as f32 fp pages.
+        Returns the twin's output in bf16."""
+        q, kp, vp, table, pos = args
+        if "k_redist" in kw:
+            kd, vd = ((kvq.unpack_int4(x).float() * kw[f"{n}_scale"].float()
+                       * kw[f"{n}_redist"]) for x, n in ((kp, "k"), (vp, "v")))
+        elif "k_scale" in kw:
+            kd, vd = kp.float() * kw["k_scale"], vp.float() * kw["v_scale"]
+        else:
+            kd, vd = kp, vp
+        kd, vd = (x.to(q.dtype).float() for x in (kd, vd))
+        return PA.paged_attention_plain(q.float(), kd, vd, table,
+                                        pos).to(q.dtype)
+
+    def held_paged(name, args, kw, **tags):
+        """The paged kernel against its plain version (and, for bf16 q, its
+        f32 twin as well), with each case's stated tolerance."""
+        out = PA.paged_attention_decode(*args, **kw)
+        plain = PA.paged_attention_plain(*args, **kw)
+        if args[0].dtype == torch.float32:
+            return held(name, out, plain, F32_ATOL, **tags)
+        twin = f32_twin(args, kw)
+        held(name, out, twin, TWIN_ATOL, BF16_ULP, vs="f32 twin", **tags)
+        own = (twin.float() - plain.float()).abs()
+        return held(name, out, plain, TWIN_ATOL + (1 + BF16_ULP) * own,
+                    BF16_ULP, cap=FP_PAGED_MAX if "[fp]" in name else None,
+                    **tags)
 
     # -- 2. kernels against their plain versions -------------------------------
     # an outlier run of 8 channels at e = 3: one 512-wide x8 K-block
@@ -334,24 +393,25 @@ def main() -> int:
     for mode in ("fp", "int8"):
         for sq in (1, 32):
             args, kw = paged_case(sq, mode, 10 * sq + len(mode))
-            held(f"paged_attention[{mode}]",
-                 PA.paged_attention_decode(*args, **kw),
-                 PA.paged_attention_plain(*args, **kw),
-                 None if mode == "fp" else F32_ATOL, sq=sq)
+            held_paged(f"paged_attention[{mode}]", args, kw, sq=sq)
     qkvh = qcfg.n_kv_heads
     for sq in (1, 4, 32):
         for g in (1, 7):
             for qdt in (torch.float32, torch.bfloat16):
                 args, kw = paged_case(sq, "int4", 100 * sq + g, heads=g * qkvh,
                                       kvh=qkvh, qdt=qdt)
-                held("paged_attention[int4]",
-                     PA.paged_attention_decode(*args, **kw),
-                     PA.paged_attention_plain(*args, **kw),
-                     F32_ATOL if qdt == torch.float32 else None,
-                     sq=sq, g=g, q=str(qdt))
+                held_paged("paged_attention[int4]", args, kw, sq=sq, g=g,
+                           q=str(qdt))
     print("kernel check: paged_attention on fp (bf16), int8 and int4 pages "
           "(sq in 1/4/32, g in 1/7, f32 and bf16 q) within tolerance",
           flush=True)
+    for c in report["checks"]:
+        if c["kernel"].startswith("paged"):
+            print(f"  {c['kernel']} {c.get('sq')}/{c.get('g', '-')}/"
+                  f"{c.get('q', 'bf16' if c['kernel'].endswith('[fp]') else 'f32')}"
+                  f" vs {c['vs']}: max abs err {c['max_abs_err']:.3g}, worst "
+                  f"element at {c['max_ratio']:.3f} of its limit "
+                  f"(atol max {c['atol_max']:.3g}, rtol {c['rtol']:.3g})")
 
     fb, fs, fh, fkv, fdh = 1, 2048, 14, 2, 64
     fg = torch.Generator().manual_seed(5)
@@ -363,12 +423,17 @@ def main() -> int:
                    (torch.float32, dict(causal=True, window=256, softcap=30.0))):
         fq, fk, fv = flash_in[dt]
         held("flash_attention", FA.flash_attention(fq, fk, fv, **kw),
-             FA.flash_attention_plain(fq, fk, fv, **kw),
-             FLASH_F32_ATOL if dt == torch.float32 else None,
-             dtype=str(dt), **kw)
+             FA.flash_attention_plain(fq, fk, fv, **kw), FLASH_F32_ATOL,
+             0.0 if dt == torch.float32 else BF16_ULP, dtype=str(dt), **kw)
     print("kernel check: flash_attention b 1 s 2048 h 14 kv 2 dh 64 causal "
           "(f32, bf16) and window 256 + softcap 30 within tolerance",
           flush=True)
+    for c in report["checks"]:
+        if c["kernel"] == "flash_attention":
+            print(f"  flash_attention {c['dtype']} window {c.get('window')}: "
+                  f"max abs err {c['max_abs_err']:.3g}, worst element at "
+                  f"{c['max_ratio']:.3f} of its limit (atol {c['atol_max']:.3g},"
+                  f" rtol {c['rtol']:.3g})")
     phases.done("kernel checks")
 
     # -- 3. timings at the serving shapes ---------------------------------------
@@ -537,7 +602,7 @@ def main() -> int:
         backend="fused", weight_granularity="per_channel"))
 
     def reset_counts():
-        RQ.LAUNCHES = G.LAUNCHES = PA.LAUNCHES = FA.LAUNCHES = 0
+        RQ.LAUNCHES = G.LAUNCHES = FA.LAUNCHES = 0
         for key in PA.MODE_LAUNCHES:
             PA.MODE_LAUNCHES[key] = 0
 
@@ -778,21 +843,41 @@ def main() -> int:
                           dtype=torch.int32).to(dev)
     n_valid = torch.tensor([4, 4], dtype=torch.int32, device=dev)
 
-    def verify_logits(ctx, paged):
+    def nudged(plain, seed):
+        """The plain paged version with its output moved one f32 ulp up or
+        down (a seeded coin per element): the size of difference that the
+        kernel's summation order makes."""
+        coin = torch.Generator(device=dev).manual_seed(seed)
+
+        def fn(*a, **kw):
+            out = plain(*a, **kw)
+            up = torch.rand(out.shape, generator=coin, device=dev) < 0.5
+            return torch.nextafter(out, torch.where(up, float("inf"),
+                                                    float("-inf")).to(out.dtype))
+        return fn
+
+    def verify_logits(ctx, paged, nudge=None):
         kv = {n_: a.clone() for n_, a in snapshot.items()}
         prev = PA.set_paged_impl(paged)
+        plain = PA.paged_attention_plain
+        if nudge is not None:
+            PA.paged_attention_plain = nudged(plain, nudge)
         try:
             with torch.no_grad():
                 out, _ = T.decode_verify_paged(qcfg, vparams, block, kv,
                                                vtab, vlen, n_valid, ctx)
         finally:
             PA.set_paged_impl(prev)
+            PA.paged_attention_plain = plain
         return out[..., :qcfg.vocab_size]
 
     #  (d) fp weights: gated at VERIFY_RTOL of the logit scale;
-    #  (e) the fused MUXQ ctx: reported only — an ulp of attention flips
-    #      int8 activation codes (34k calibrated outlier channels), and 24
-    #      random layers amplify each flip, as (c) shows for gpt2
+    #  (e) the fused MUXQ ctx: the kernel's attention differs from the
+    #      plain version's by f32 ulps (summation order), which can flip
+    #      int8 activation codes that 24 random layers amplify.  Its
+    #      spread is measured: the plain path against itself with every
+    #      attention output nudged by one ulp (3 seeds).  Gated at
+    #      NUDGE_FACTOR x the largest such spread.
     vk = verify_logits(FpCtx(), "auto")
     vp = verify_logits(FpCtx(), "ref")
     verr = float((vk - vp).abs().max())
@@ -801,14 +886,26 @@ def main() -> int:
     qp_ = verify_logits(vctx, "ref")
     qerr = float((qk_ - qp_).abs().max())
     vagree = float((qk_.argmax(-1) == qp_.argmax(-1)).float().mean())
+    spreads, nagree = [], []
+    for seed in (1, 2, 3):
+        qn = verify_logits(vctx, "ref", nudge=seed)
+        spreads.append(float((qn - qp_).abs().max()))
+        nagree.append(float((qn.argmax(-1) == qp_.argmax(-1)).float().mean()))
     print(f"logits qwen2 verify (int4 pages, k = 4), paged kernel vs plain: "
           f"(d) fp weights max abs err {verr:.3e} (|logits| max {vscale:.3f}, "
           f"tolerance {VERIFY_RTOL} x max); (e) fused MUXQ max abs err "
-          f"{qerr:.3e}, argmax agreement {vagree:.3f}", flush=True)
+          f"{qerr:.3e}, argmax agreement {vagree:.3f}; plain vs plain with "
+          f"1-ulp nudges: max abs err {[round(x, 4) for x in spreads]}, "
+          f"argmax agreement {nagree} (gate: (e) <= {NUDGE_FACTOR} x max)",
+          flush=True)
     if not (torch.isfinite(vk).all() and torch.isfinite(qk_).all()) \
             or verr > VERIFY_RTOL * vscale:
         raise AssertionError("qwen2 verify logits: the paged kernel disagrees "
                              "with the plain version in place")
+    if qerr > NUDGE_FACTOR * max(spreads):
+        raise AssertionError(f"qwen2 verify logits under fused MUXQ: kernel vs "
+                             f"plain {qerr} exceeds {NUDGE_FACTOR} x the 1-ulp "
+                             f"spread {max(spreads)}")
     del vparams, vart, vctx, vpool, snapshot
     torch.cuda.empty_cache()
     phases.done("qwen2 calibrate + pack + verify logits")
@@ -819,9 +916,14 @@ def main() -> int:
     # has drafts to verify
     qparams, qart, kv_calib, n_kv_out = qwen2_artifact(SERVE_BRANCH_SCALE,
                                                        "served")
-    qprompts = ["one two three one two three one two three one two three",
+    # the served stream repeats its last token, so an n-gram draft that
+    # continues the prompt's pattern ("aab aab ... a" drafts "b a") is
+    # rejected: the verify step's rejection path runs.  The second prompt
+    # is the first again: it maps the first's pages, partial page included,
+    # and its first k-token write copies that page (copy-on-write over the
+    # write's span)
+    qprompts = ["aab aab aab a", "aab aab aab a",
                 "abc abc abc abc abc abc abc abc",
-                "the pool pages the pool pages the pool pages",
                 "spec spec spec spec spec spec spec"]
     qengine = ServeEngine(qcfg, qart, max_batch=4, s_max=256, prefill_chunk=32,
                           kv_mode="int4", spec_mode="ngram", spec_k=4,
@@ -835,6 +937,16 @@ def main() -> int:
             raise AssertionError(f"qwen2 serve never launched {key}: {qlaunch}")
     if qrep["spec_verify_steps"] <= 0:
         raise AssertionError("the speculative verify step never ran")
+    if not qrep["spec_accepted"] < qrep["spec_proposed"]:
+        raise AssertionError("no draft token was rejected: the verify step's "
+                             "rejection path never ran")
+    if qrep["prefix_hits"] <= 0 or qrep["cow_copies"] <= 0:
+        raise AssertionError("the repeated prompt shared no page or copied "
+                             f"none: {qrep['prefix_hits']} prefix hits, "
+                             f"{qrep['cow_copies']} copies")
+    if qreqs[0].out_tokens != qreqs[1].out_tokens:
+        raise AssertionError("two identical prompts, one on copied pages, "
+                             "gave different streams")
     int8_bpt = PagePool(qcfg, 4, 256, page_size=16, mode="int8",
                         device=dev).stats()["bytes_per_token"]
     ratio = qrep["bytes_per_token"] / int8_bpt
@@ -854,11 +966,14 @@ def main() -> int:
     same = sum(a == b_ for r1, r2 in zip(qreqs, freqs)
                for a, b_ in zip(r1.out_tokens, r2.out_tokens))
     total = sum(len(r.out_tokens) for r in qreqs)
+    # with the residual branches scaled down the tokens come from the
+    # embeddings almost alone: this share says little of the pages
     print(f"qwen2 int4+spec vs f32 pages spec off: {same}/{total} tokens agree "
-          f"position by position ({same / total:.3f}); steps "
-          f"{qrep['decode_steps']} vs {frep['decode_steps']}, spec accepted "
-          f"{qrep['spec_accepted']} of {qrep['spec_proposed']} proposed",
-          flush=True)
+          f"position by position ({same / total:.3f}; uninformative at this "
+          f"branch scale); steps {qrep['decode_steps']} vs "
+          f"{frep['decode_steps']}, spec accepted {qrep['spec_accepted']} of "
+          f"{qrep['spec_proposed']} proposed; {qrep['prefix_hits']} prefix "
+          f"hits, {qrep['cow_copies']} copy-on-write copies", flush=True)
     report["serve_qwen2"] = {
         "seconds": qsecs, "launches": qlaunch, "kv_outlier_channels": n_kv_out,
         "report": {k_: v_ for k_, v_ in qrep.items() if k_ != "decode_buckets"},
@@ -866,9 +981,12 @@ def main() -> int:
         "verify_fp_weights_max_abs_err": verr, "verify_logits_scale": vscale,
         "verify_fused_max_abs_err": qerr,
         "verify_fused_argmax_agreement": vagree,
+        "verify_fused_nudge_spreads": spreads,
+        "verify_fused_nudge_argmax_agreement": nagree,
         "fp_run": {"seconds": fsecs, "launches": flaunch,
                    "decode_steps": frep["decode_steps"]},
-        "token_agreement_vs_fp_spec_off": same / total}
+        "token_agreement_vs_fp_spec_off": same / total,
+        "streams": [[r.prompt, r.out_tokens] for r in qreqs]}
     phases.done("serve qwen2-0.5b")
 
     # -- 6. result lines ---------------------------------------------------------

@@ -28,38 +28,21 @@
 // f32.  This version is plain SIMT f32 (no tensor cores, no copy
 // pipeline), so it runs far from that bound; its design only keeps every
 // K/V tile to one device-memory read per block.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+//
+// The online-softmax update, the normalization and the launch are shared
+// with paged_attention.cu (attention_common.cuh); this file stages dense
+// K/V tiles.
+#include "attention_common.cuh"
 
 namespace {
+
+using attn::to_float;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBq = 32;       // query rows per block
 constexpr int kBk = 32;       // keys per tile (one per lane)
 constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
@@ -77,7 +60,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   float* ks = l_s + kBq;              // [kBk][dh + 1]
   float* vs = ks + kBk * ldk;         // [kBk][dh + 1]
   float* pbuf = vs + kBk * ldk;       // [kWarps][32]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
 
   for (int idx = tid; idx < rows * dh; idx += kThreads) {
     const int r = idx / dh, d = idx % dh;
@@ -105,48 +88,20 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       vs[p * ldk + d] = to_float(v[off]);
     }
     __syncthreads();
-    for (int r = warp; r < rows; r += kWarps) {
-      const int qpos = q0 + r;
-      float s = -INFINITY;  // lanes past sk: no key at all
-      if (lane < n_keys) {
-        const float* qr = qs + r * dh;
-        const float* kr = ks + lane * ldk;
-        float dot = 0.f;
-        for (int d = 0; d < dh; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        const int kpos = kt + lane;
-        bool allow = true;
-        if (causal) allow = allow && kpos <= qpos;
-        if (window > 0) allow = allow && kpos > qpos - window;
-        s = allow ? s : kNegInf;
-      }
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = lane < n_keys ? expf(s - m_new) : 0.f;
-      const float alpha = expf(m_prev - m_new);
-      const float psum = warp_sum(p);
-      pbuf[warp * 32 + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        l_s[r] = l_s[r] * alpha + psum;
-        m_s[r] = m_new;
-      }
-      for (int d = lane; d < dh; d += 32) {
-        float a = acc[r * dh + d] * alpha;
-        for (int kp = 0; kp < n_keys; ++kp)
-          a = fmaf(pbuf[warp * 32 + kp], vs[kp * ldk + d], a);
-        acc[r * dh + d] = a;
-      }
-      __syncwarp();
-    }
+    attn::consume_tile<kWarps>(
+        qs, acc, m_s, l_s, ks, vs, pbuf, rows, dh, n_keys, scale, softcap,
+        kNegInf, [&](int r, int key) {
+          const int qpos = q0 + r, kpos = kt + key;
+          return (!causal || kpos <= qpos) &&
+                 (window <= 0 || kpos > qpos - window);
+        });
   }
   __syncthreads();
   for (int idx = tid; idx < rows * dh; idx += kThreads) {
     const int r = idx / dh, d = idx % dh;
-    const float denom = fmaxf(l_s[r], 1e-30f);
-    store(out + ((static_cast<size_t>(b) * sq + q0 + r) * h + hh) * dh + d,
-          acc[idx] / denom);
+    attn::store_normalized(
+        out + ((static_cast<size_t>(b) * sq + q0 + r) * h + hh) * dh + d, acc,
+        l_s, idx, r);
   }
 }
 
@@ -156,23 +111,12 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
            float scale, float softcap, cudaStream_t st) {
   const size_t smem =
       sizeof(float) * (2 * kBq * dh + 2 * kBq + 2 * kBk * (dh + 1) + kWarps * 32);
-  auto kern = flash_attention_kernel<T>;
-  // opt in above 48 KB once per instantiation and size, so a launch
-  // inside a CUDA-graph capture makes no attribute call
   static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = smem;
-  }
-  dim3 grid((sq + kBq - 1) / kBq, h, b);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+  return attn::launch_kernel(
+      flash_attention_kernel<T>, &opted_in, dim3((sq + kBq - 1) / kBq, h, b),
+      kThreads, smem, st, static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), sq, sk, h, kv, dh,
       causal, window, scale, softcap);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -38,28 +38,19 @@
 // Above 48 KB the launcher opts in with cudaFuncSetAttribute; above the
 // card's 227 KB that call fails and its error is returned, never a
 // silently skipped launch.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+//
+// The online-softmax update, the normalization and the launch are shared
+// with flash_attention.cu (attention_common.cuh); this file stages pages.
+#include "attention_common.cuh"
 
 namespace {
+
+using attn::to_float;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e9f;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_float(int8_t v) {
-  return static_cast<float>(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 // a dequantized value rounded to q's dtype, as the plain version casts it
 template <typename QT>
 __device__ __forceinline__ float round_to(float v) {
@@ -76,17 +67,6 @@ __device__ __forceinline__ float int4_code(const int8_t* row, int d,
   const unsigned p =
       static_cast<unsigned>(static_cast<int>(row[lo ? d : d - half]));
   return static_cast<float>(static_cast<int>(p << (lo ? 28 : 24)) >> 28);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 template <typename QT, typename KT, bool kInt4>
@@ -108,7 +88,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   float* ks = l_s + rows;             // [ps][dh + 1]
   float* vs = ks + ps * ldk;          // [ps][dh + 1]
   float* pbuf = vs + ps * ldk;        // [kWarps][32]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
 
   // row r = i * g + gg  <->  query token i, head hh * g + gg
   for (int idx = tid; idx < rows * dh; idx += kThreads) {
@@ -154,46 +134,19 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       vs[p * ldk + d] = round_to<QT>(vv);
     }
     __syncthreads();
-    for (int r = warp; r < rows; r += kWarps) {
-      const int qpos = p0 + r / g;
-      float s = -INFINITY;  // lanes past the page: no key at all
-      if (lane < ps) {
-        const float* qr = qs + r * dh;
-        const float* kr = ks + lane * ldk;
-        float dot = 0.f;
-        for (int d = 0; d < dh; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-        if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-        const int kpos = j * ps + lane;
-        const bool allow = kpos <= qpos && kpos > qpos - window;
-        s = allow ? s : kNegInf;
-      }
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = lane < ps ? expf(s - m_new) : 0.f;
-      const float alpha = expf(m_prev - m_new);
-      const float psum = warp_sum(p);
-      pbuf[warp * 32 + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        l_s[r] = l_s[r] * alpha + psum;
-        m_s[r] = m_new;
-      }
-      for (int d = lane; d < dh; d += 32) {
-        float a = acc[r * dh + d] * alpha;
-        for (int kp = 0; kp < ps; ++kp)
-          a = fmaf(pbuf[warp * 32 + kp], vs[kp * ldk + d], a);
-        acc[r * dh + d] = a;
-      }
-      __syncwarp();
-    }
+    attn::consume_tile<kWarps>(
+        qs, acc, m_s, l_s, ks, vs, pbuf, rows, dh, ps, scale, softcap, kNegInf,
+        [&](int r, int key) {
+          const int qpos = p0 + r / g, kpos = j * ps + key;
+          return kpos <= qpos && kpos > qpos - window;
+        });
   }
   __syncthreads();
   for (int idx = tid; idx < rows * dh; idx += kThreads) {
     const int r = idx / dh, d = idx % dh, i = r / g, gg = r % g;
-    const float denom = fmaxf(l_s[r], 1e-30f);
-    store(out + ((static_cast<size_t>(b) * sq + i) * h + hh * g + gg) * dh + d,
-          acc[idx] / denom);
+    attn::store_normalized(
+        out + ((static_cast<size_t>(b) * sq + i) * h + hh * g + gg) * dh + d,
+        acc, l_s, idx, r);
   }
 }
 
@@ -207,25 +160,14 @@ int launch(const void* q, const void* kp, const void* vp, const void* ks,
   const size_t smem =
       sizeof(float) *
       (2 * rows * dh + 2 * rows + 2 * ps * (dh + 1) + kWarps * 32);
-  auto kern = paged_attention_kernel<QT, KT, kInt4>;
-  // opt in above 48 KB once per instantiation and size, so a launch
-  // inside a CUDA-graph capture makes no attribute call
   static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    opted_in = smem;
-  }
-  dim3 grid(b, kvh);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(kp),
+  return attn::launch_kernel(
+      paged_attention_kernel<QT, KT, kInt4>, &opted_in, dim3(b, kvh), kThreads,
+      smem, st, static_cast<const QT*>(q), static_cast<const KT*>(kp),
       static_cast<const KT*>(vp), ks, vs, static_cast<const float*>(kr),
       static_cast<const float*>(vr), static_cast<const int*>(table),
       static_cast<const int*>(pos), static_cast<QT*>(out), sq, h, kvh, dh, ps,
       n_table, window, scale, softcap);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -4,8 +4,9 @@ Each ``.cu`` source has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library, loaded with
 ``ctypes``.  Builds run at first use, all sources in parallel (one
 ``nvcc`` process each), into ``build/repro_torch_kernels/`` at the root of
-the checkout; a library's file name carries a hash of its source, so an
-edited kernel is rebuilt and an unchanged one is reused.  No
+the checkout; a library's file name carries a hash of its source and of
+the shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt and an
+unchanged one is reused.  No
 ``--use_fast_math``: the kernels' divisions and roundings must match the
 plain PyTorch versions bit for bit.
 
@@ -59,7 +60,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -13,8 +13,8 @@ redistribution rows (2^e on the calibrated outlier channels).
 Execution (mirrors ``set_fused_impl``): ``auto`` launches the CUDA kernel
 for CUDA tensors and takes the plain version for CPU tensors; ``ref``
 forces the plain version.  A CUDA tensor never falls back silently.
-``LAUNCHES`` counts kernel launches, ``MODE_LAUNCHES`` the same launches
-by page mode.
+``MODE_LAUNCHES`` counts kernel launches by page mode (their sum is the
+kernel's launch count).
 """
 from __future__ import annotations
 
@@ -32,7 +32,6 @@ PagedImpl = Literal["auto", "ref"]
 
 _PAGED_IMPL: PagedImpl = "auto"
 
-LAUNCHES = 0
 MODE_LAUNCHES = {"fp": 0, "int8": 0, "int4": 0}
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,7 +112,6 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, pos, *,
 
 def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
             k_redist, v_redist, window, softcap):
-    global LAUNCHES
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
@@ -164,7 +162,6 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
             _Q_CODES[q.dtype], _KV_INT4 if int4 else _KV_CODES[k_pages.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "paged_attention")
-    LAUNCHES += 1
     MODE_LAUNCHES["int4" if int4 else "int8" if scaled else "fp"] += 1
     return out[:, 0] if squeeze else out
 
