@@ -19,9 +19,11 @@ its seconds):
    constants below); a bf16 paged case is also held, one bf16 ulp wide,
    against its f32 twin (the plain version in f32 on the kernel's own
    bf16-rounded operands).
-3. Time each kernel (CUDA-graph replay after an L2 eviction), its plain
-   version and a PyTorch yardstick beside the kernel's lower bound on this
-   card, at the shapes the serving runs give it.
+3. Time each kernel (CUDA-graph replay after an L2 eviction; the median
+   of 5 sets of replays, with their spread, after the clock is warmed),
+   its plain version and a PyTorch yardstick beside the kernel's lower
+   bound on this card, at the shapes the serving runs give it: decode,
+   verify and prefill chunks on the page modes they use.
 4. Serve gpt2-small at full width (12 layers, random weights from a seed,
    int8 pages): calibrate, pack the fused MUXQ kernel buffers, serve 4
    requests x 16 tokens, profile a repeat run, and hold the kernel path's
@@ -65,6 +67,8 @@ HBM_BYTES_S = 3.35e12
 INT8_OPS_S = 1979e12
 BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
+TIMING_SETS = 5     # time_ms: median over this many sets of replays
+SLEEP_CYCLES = 200_000  # time_ms: a busy wait ahead of each timed replay
 
 # tolerances, elementwise: |kernel - reference| <= atol + rtol * |reference|
 BF16_ULP = 2.0 ** -7    # rtol of every bf16 case: one bf16 ulp of the element
@@ -102,13 +106,18 @@ def bound(nbytes: float, ops: float, peak_ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def time_ms(torch, fn, flush, iters: int = 20) -> float:
-    """Mean device time of ``fn`` over ``iters`` runs, each after reading
-    a 64 MB buffer that evicts L2 (the serving path finds weights cold:
-    the layers' weights exceed the 50 MB L2); ``flush=None`` times it warm.
-    ``fn`` is captured once in a CUDA graph and replayed, so the events
-    time the device work and not the Python and launch overhead between
-    ops (``call_ms`` measures that)."""
+def time_ms(torch, fn, flush, iters: int = 20):
+    """Device time of ``fn``: the median, over TIMING_SETS sets of
+    ``iters`` runs, of a set's mean run, and the spread (min, max) of the
+    set means.  Each run follows a read of a 64 MB buffer that evicts L2
+    (the serving path finds weights cold: the layers' weights exceed the
+    50 MB L2); ``flush=None`` times it warm.  ``fn`` is captured once in a
+    CUDA graph and replayed, so the events time the device work and not
+    the Python and launch overhead between ops (``call_ms`` measures
+    that); a sleep kernel ahead of the start event keeps the stream busy
+    while the host enqueues the events and the replay, so the host's
+    launch latency stays outside them.  Replays for at least 50 ms first
+    warm the clock."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -119,18 +128,27 @@ def time_ms(torch, fn, flush, iters: int = 20) -> float:
         fn()
     graph.replay()
     torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
-        if flush is not None:
-            flush.sum()     # a read leaves L2 full of clean, unrelated lines
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.05:
+        for _ in range(10):
+            graph.replay()
         torch.cuda.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
+    means = []
+    for _ in range(TIMING_SETS):
+        total = 0.0
+        for _ in range(iters):
+            if flush is not None:
+                flush.sum()     # a read leaves L2 full of clean, unrelated lines
+            torch.cuda._sleep(SLEEP_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            torch.cuda.synchronize()
+            total += a.elapsed_time(b)
+        means.append(total / iters)
+    return sorted(means)[len(means) // 2], (min(means), max(means))
 
 
 def call_ms(torch, fn, iters: int = 50) -> float:
@@ -147,14 +165,15 @@ def call_ms(torch, fn, iters: int = 50) -> float:
 
 
 def maybe_time(torch, fn, flush):
-    """``time_ms`` of a library yardstick, or None where the library call
-    refuses these inputs (``torch._int_mm`` wants M > 16, for one)."""
+    """The median ``time_ms`` of a library yardstick, or None where the
+    library call refuses these inputs (``torch._int_mm`` wants M > 16, for
+    one)."""
     try:
         fn()
     except RuntimeError as e:
         print(f"yardstick refused: {str(e).splitlines()[0]}")
         return None
-    return time_ms(torch, fn, flush)
+    return time_ms(torch, fn, flush)[0]
 
 
 class Phases:
@@ -453,7 +472,7 @@ def main() -> int:
     timed["rowwise_quantize"] = {
         "fn": rq_fn,
         "plain_ms": time_ms(torch, lambda: RQ.rowwise_quantize_plain(
-            x, 8, mw.gather_idx, mw.in_scale), flush),
+            x, 8, mw.gather_idx, mw.in_scale), flush)[0],
         "library_ms": None,
         "shape": f"x [{m}, {k}] f32 -> int8 [{m}, {k_pad}] (gpt2 mlp_up)",
         **dict(zip(("bound_ms", "bound_by"), bound(
@@ -463,7 +482,7 @@ def main() -> int:
         "fn": lambda: G.muxq_gemm(xq, mw.w_int, mw.block_scale, sx, mw.sw,
                                   bk=mw.bk),
         "plain_ms": time_ms(torch, lambda: G.muxq_gemm_plain(
-            xq, mw.w_int, mw.block_scale, sx, mw.sw, mw.bk), flush),
+            xq, mw.w_int, mw.block_scale, sx, mw.sw, mw.bk), flush)[0],
         "library_ms": maybe_time(torch, lambda: torch._int_mm(xq, mw.w_int),
                                  flush),
         "shape": f"int8 [{m}, {k_pad}] x [{k_pad}, {n}] (gpt2 mlp_up)",
@@ -477,7 +496,7 @@ def main() -> int:
     sxp = torch.rand(128, 1, generator=gen).to(dev)
     t128 = {"kernel": "muxq_gemm", "m": 128, "k_pad": k_pad, "n": n,
             "ms": time_ms(torch, lambda: G.muxq_gemm(
-                xp, mw.w_int, mw.block_scale, sxp, mw.sw, bk=mw.bk), flush),
+                xp, mw.w_int, mw.block_scale, sxp, mw.sw, bk=mw.bk), flush)[0],
             "int_mm_ms": maybe_time(torch, lambda: torch._int_mm(xp, mw.w_int),
                                     flush),
             "bound_ms": bound(128 * k_pad + k_pad * n + 4 * 128 * n,
@@ -489,13 +508,16 @@ def main() -> int:
                  "int4": lambda ksz: 2 * (dh // 2 + 2)}
 
     def paged_timing(mode, sq, heads, kvh, pos_list, label):
-        """The paged kernel at a serving shape: b = 4 slots with 128-position
-        tables, positions ``pos_list``; bound from the pages these positions
-        read and the (query, key) pairs the causal mask allows."""
+        """The paged kernel at a serving shape: one slot per entry of
+        ``pos_list`` (its position), with 128-position tables; bound from
+        the pages these positions read and the (query, key) pairs the
+        causal mask allows."""
         (q, kp, vp, _, _), kw = paged_case(sq, mode, 7 + sq, heads=heads,
                                            kvh=kvh, qdt=torch.float32)
         if mode == "fp":
             kp, vp = kp.float(), vp.float()
+        b = len(pos_list)
+        q = q[:b].contiguous()
         pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
         table = torch.arange(1, 1 + b * n_tab, dtype=torch.int32,
                              device=dev).reshape(b, n_tab)
@@ -526,9 +548,9 @@ def main() -> int:
         qs = q.transpose(1, 2)
         return {"fn": lambda: PA.paged_attention_decode(*args, **kw),
                 "plain_ms": time_ms(torch, lambda: PA.paged_attention_plain(
-                    *args, **kw), flush),
+                    *args, **kw), flush)[0],
                 "library_ms": time_ms(torch, lambda: sdpa(
-                    qs, kd, vd, attn_mask=allow), flush),
+                    qs, kd, vd, attn_mask=allow), flush)[0],
                 "shape": f"{label}: b={b} sq={sq} h={heads} kvh={kvh} dh={dh} "
                          f"{mode} pages, {sum(n_read) * ps} key positions read",
                 **dict(zip(("bound_ms", "bound_by"), bound(
@@ -546,6 +568,12 @@ def main() -> int:
         "int4", 4, qh, qkvh, [124, 97, 61, 37], "qwen2 verify")
     timed["paged_attention[int4] prefill"] = paged_timing(
         "int4", 32, qh, qkvh, [96, 64, 32, 0], "qwen2 prefill chunk")
+    # the prefill chunks of the gpt2 run (2 prompts at once) and of the
+    # qwen2 run on f32 pages
+    timed["paged_attention[int8] prefill"] = paged_timing(
+        "int8", 32, h, h, [32, 0], "gpt2 prefill chunk")
+    timed["paged_attention[fp] prefill"] = paged_timing(
+        "fp", 32, qh, qkvh, [96, 64, 32, 0], "qwen2 prefill chunk")
 
     fq, fk, fv = flash_in[torch.bfloat16]
     pairs = fs * (fs + 1) // 2
@@ -561,9 +589,9 @@ def main() -> int:
     timed["flash_attention"] = {
         "fn": lambda: FA.flash_attention(fq, fk, fv, causal=True),
         "plain_ms": time_ms(torch, lambda: FA.flash_attention_plain(
-            fq, fk, fv, causal=True), flush),
+            fq, fk, fv, causal=True), flush)[0],
         "library_ms": time_ms(torch, lambda: sdpa(
-            *sq_in[torch.bfloat16], is_causal=True), flush),
+            *sq_in[torch.bfloat16], is_causal=True), flush)[0],
         "shape": f"b={fb} s={fs} h={fh} kv={fkv} dh={fdh} causal bf16",
         **dict(zip(("bound_ms", "bound_by"), bound(
             2 * (fq.numel() * 2 + fk.numel() + fv.numel()),
@@ -572,9 +600,9 @@ def main() -> int:
     timed["flash_attention f32"] = {
         "fn": lambda: FA.flash_attention(fq32, fk32, fv32, causal=True),
         "plain_ms": time_ms(torch, lambda: FA.flash_attention_plain(
-            fq32, fk32, fv32, causal=True), flush),
+            fq32, fk32, fv32, causal=True), flush)[0],
         "library_ms": time_ms(torch, lambda: sdpa(
-            *sq_in[torch.float32], is_causal=True), flush),
+            *sq_in[torch.float32], is_causal=True), flush)[0],
         "shape": f"b={fb} s={fs} h={fh} kv={fkv} dh={fdh} causal f32",
         **dict(zip(("bound_ms", "bound_by"), bound(
             4 * (fq32.numel() * 2 + fk32.numel() + fv32.numel()),
@@ -582,14 +610,15 @@ def main() -> int:
 
     for name, t in timed.items():
         fn = t.pop("fn")
-        t["ms"] = time_ms(torch, fn, flush)
-        t["warm_ms"] = time_ms(torch, fn, None)
+        t["ms"], t["spread_ms"] = time_ms(torch, fn, flush)
+        t["warm_ms"], t["warm_spread_ms"] = time_ms(torch, fn, None)
         t["call_ms"] = call_ms(torch, fn, iters=10 if "flash" in name else 50)
         report["timings"].append({"kernel": name, **t})
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        print(f"time {name} [{t['shape']}]: kernel {t['ms']:.4f} ms (warm "
-              f"L2 {t['warm_ms']:.4f} ms, eager call {t['call_ms']:.4f} ms), "
-              f"plain {t['plain_ms']:.4f} ms, "
+        print(f"time {name} [{t['shape']}]: kernel {t['ms']:.4f} ms (median "
+              f"of {TIMING_SETS} sets, spread {t['spread_ms'][0]:.4f}-"
+              f"{t['spread_ms'][1]:.4f}; warm L2 {t['warm_ms']:.4f} ms, eager "
+              f"call {t['call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']})  [{card}]", flush=True)
     print(f"time muxq_gemm [M=128]: kernel {t128['ms']:.4f} ms, torch._int_mm "

@@ -40,8 +40,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rowwise_quantize": [_P] * 5 + [_I] * 5 + [_P],
     "muxq_gemm": [_P] * 6 + [_I] * 4 + [_P],
-    "paged_attention": [_P] * 10 + [_I] * 8 + [_F] * 2 + [_I] * 2 + [_P],
-    "flash_attention": [_P] * 4 + [_I] * 8 + [_F] * 2 + [_I] + [_P],
+    "paged_attention": [_P] * 11 + [_I] * 10 + [_F] * 2 + [_I] * 2 + [_P],
+    "flash_attention": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_I] + [_P],
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -71,9 +71,11 @@ def _launch(q, k, v, causal, window, softcap):
             raise ValueError("flash attention operands must be on q's device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    queue = torch.empty(1, dtype=torch.int32, device=q.device)
     rc = build.launcher("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kv, dh, int(causal), 0 if window is None else int(window),
+        queue.data_ptr(), b, sq, sk, h, kv, dh, int(causal),
+        0 if window is None else int(window),
         dh ** -0.5, 0.0 if softcap is None else float(softcap),
         _CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "flash_attention")

@@ -15,10 +15,16 @@ for CUDA tensors and takes the plain version for CPU tensors; ``ref``
 forces the plain version.  A CUDA tensor never falls back silently.
 ``MODE_LAUNCHES`` counts kernel launches by page mode (their sum is the
 kernel's launch count).
+
+The kernel's grid is (KV split, row tile, slot x KV head): ``plan_splits``
+cuts a slot's ``sq * g`` query rows into tiles of ``ROW_TILE`` and its page
+table into splits, from the table's width alone (``pos`` stays on the
+card).  With several splits the C call launches a second, merging pass
+over f32 partials in scratch that the wrapper allocates.
 """
 from __future__ import annotations
 
-from typing import Literal, Optional
+from typing import Literal, Optional, Tuple
 
 import torch
 
@@ -33,6 +39,10 @@ PagedImpl = Literal["auto", "ref"]
 _PAGED_IMPL: PagedImpl = "auto"
 
 MODE_LAUNCHES = {"fp": 0, "int8": 0, "int4": 0}
+
+ROW_TILE = 64           # query rows of a block (4 warps x 16; csrc attn::kRows)
+MAX_PAGES_PER_SPLIT = 1024   # a split's page ids sit in shared memory
+MAX_HEAD_DIM = 256
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -110,6 +120,51 @@ def paged_attention_plain(q, k_pages, v_pages, page_table, pos, *,
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
+def key_tile(dh: int) -> int:
+    """Keys of the kernel's K/V tile at head dim dh (csrc key_tile): 64 up
+    to dh 64, 32 up to 128, 16 up to 256."""
+    return 4096 // (64 if dh <= 64 else 128 if dh <= 128 else 256)
+
+
+def plan_splits(b: int, kvh: int, rows: int, n_table: int, ps: int, dh: int,
+                n_sm: int = 132) -> Tuple[int, int, int]:
+    """The kernel's grid for ``rows = sq * g`` query rows per (slot, KV
+    head) over a page table ``n_table`` pages of ``ps`` wide:
+    ``(n_row_tiles, pages_per_split, n_split)``.  A table that fits one
+    key tile is not split: a block's time is mostly fixed latency, so
+    splitting one tile adds blocks and a merge pass and saves nothing (and
+    the unsplit tile matches the plain version's arithmetic).  A longer
+    table is split until the grid fills one wave of ``n_sm`` blocks
+    (decode on few slots and heads), never finer than one page a split; a
+    split holds at most ``MAX_PAGES_PER_SPLIT`` pages.  Split s covers
+    pages ``[s * pps, min((s + 1) * pps, n_table))``; none is empty."""
+    n_rt = -(-rows // ROW_TILE)
+    if n_table * ps <= key_tile(dh):
+        return n_rt, max(1, n_table), 1
+    want = min(n_table, max(1, -(-n_sm // (b * kvh * n_rt))))
+    pps = min(-(-n_table // want), MAX_PAGES_PER_SPLIT)
+    return n_rt, pps, -(-n_table // pps)
+
+
+def workspace_floats(b: int, kvh: int, rows: int, dh: int, n_row_tiles: int,
+                     n_split: int) -> int:
+    """f32 scratch of the split partials: O, m and l of every split's rows
+    (none with a single split)."""
+    if n_split == 1:
+        return 0
+    return n_split * b * kvh * n_row_tiles * ROW_TILE * (dh + 2)
+
+
+_SM_COUNT: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
 def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
             k_redist, v_redist, window, softcap):
     squeeze = q.dim() == 3
@@ -118,10 +173,12 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
     b, sq, h, dh = q.shape
     n_pages, ps, kvh, pk_dh = k_pages.shape
     int4 = k_redist is not None
-    if h % kvh or pk_dh != (dh // 2 if int4 else dh) or ps > 32 or dh % 2:
+    if h % kvh or pk_dh != (dh // 2 if int4 else dh) or ps > 32 or dh % 2 \
+            or dh > MAX_HEAD_DIM:
         raise ValueError(f"bad shapes: q {tuple(q.shape)}, pages "
-                         f"{tuple(k_pages.shape)} (page size <= 32; int4 "
-                         "pages hold dh/2 packed bytes)")
+                         f"{tuple(k_pages.shape)} (page size <= 32, even "
+                         f"head_dim <= {MAX_HEAD_DIM}; int4 pages hold dh/2 "
+                         "packed bytes)")
     if q.dtype not in _Q_CODES or k_pages.dtype not in _KV_CODES:
         raise ValueError(f"unsupported dtypes q {q.dtype}, pages {k_pages.dtype}")
     scaled = k_pages.dtype == torch.int8
@@ -149,6 +206,12 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
         raise ValueError("page_table and pos must be int32")
     q = q.contiguous()
     out = torch.empty_like(q)
+    n_table = page_table.shape[1]
+    n_rt, pps, n_split = plan_splits(b, kvh, sq * (h // kvh), n_table, ps,
+                                     dh, _sm_count(q.device))
+    ws = None if n_split == 1 else torch.empty(
+        workspace_floats(b, kvh, sq * (h // kvh), dh, n_rt, n_split),
+        dtype=torch.float32, device=q.device)
     rc = build.launcher("paged_attention")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scale.data_ptr() if scaled else None,
@@ -156,8 +219,9 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
             k_redist.data_ptr() if int4 else None,
             v_redist.data_ptr() if int4 else None,
             page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, sq, h, kvh, dh, ps, page_table.shape[1],
-            NO_WINDOW if window is None else int(window),
+            None if ws is None else ws.data_ptr(),
+            b, sq, h, kvh, dh, ps, n_table,
+            NO_WINDOW if window is None else int(window), pps, n_split,
             dh ** -0.5, 0.0 if softcap is None else float(softcap),
             _Q_CODES[q.dtype], _KV_INT4 if int4 else _KV_CODES[k_pages.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)

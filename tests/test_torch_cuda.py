@@ -151,18 +151,88 @@ def test_cuda_paged_attention_int4_matches_plain(cuda, qdt, sq, g):
 
 @pytest.mark.gpu
 def test_cuda_paged_attention_refuses_a_block_over_shared_memory(cuda):
-    """sq * g * dh above the card's 227 KB of shared memory: the launcher's
-    opt-in fails and the wrapper raises; no launch is skipped silently.
-    The failed opt-in leaves no stale error: the next launch succeeds."""
+    """sq 64 x h 16 over 2 KV heads (1024 query rows of dh 64) once needed
+    more than the card's 227 KB of shared memory in one block.  A block now
+    holds a 64-row tile, whatever sq * g is: the case runs and matches the
+    plain version (atol 1e-4, f32 sum order).  The next launch, at decode,
+    succeeds as well."""
     q, k, v, table, pos = _paged_inputs(0, sq=64, h=16, kvh=2)
     t = [torch.from_numpy(a).to(cuda) for a in (q, k, v, table, pos)]
-    with pytest.raises(RuntimeError, match="cudaError"):
-        PA.paged_attention_decode(*t)
+    torch.testing.assert_close(PA.paged_attention_decode(*t),
+                               PA.paged_attention_plain(*t), rtol=0, atol=1e-4)
     q, k, v, table, pos = _paged_inputs(0, sq=1, h=16, kvh=2)
     t = [torch.from_numpy(a).to(cuda) for a in (q, k, v, table, pos)]
     ok = PA.paged_attention_decode(*t)
     torch.testing.assert_close(ok, PA.paged_attention_plain(*t), rtol=0,
                                atol=1e-4)
+
+
+def _long_table_inputs(seed, *, n_table, sq, b=4, h=14, kvh=2, dh=64, ps=16):
+    """Slots on tables ``n_table`` pages wide: slot 0 at its table's end,
+    slot 1 halfway, slot 2 in its first page, slot 3 idle on scratch page
+    0."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * n_table + 1
+    q = rng.standard_normal((b, sq, h, dh)).astype(np.float32)
+    k = rng.standard_normal((n_pages, ps, kvh, dh)).astype(np.float32)
+    v = rng.standard_normal((n_pages, ps, kvh, dh)).astype(np.float32)
+    table = (1 + rng.permutation(b * n_table)).reshape(b, n_table).astype(np.int32)
+    table[3] = 0
+    pos = np.array([n_table * ps - sq, n_table * ps // 2, 3, 0], np.int32)
+    return q, k, v, table, pos
+
+
+def _int4_pages(k, v, kvh, dh):
+    mask = np.zeros((kvh, dh), bool)
+    mask[kvh - 1, [3, dh // 2 + 3]] = True
+    redist = torch.from_numpy(redist_from_mask(mask)).to(k.device)
+    parts = Int4KVQuantizer(redist, redist).quantize(k, v)
+    return parts["k"], parts["v"], {
+        "k_scale": parts["k_scale"], "v_scale": parts["v_scale"],
+        "k_redist": redist, "v_redist": redist}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("n_table,sq", [(64, 1), (64, 4), (13, 1), (13, 32)])
+def test_cuda_paged_attention_splits_the_table(cuda, mode, n_table, sq):
+    """Long tables (64 pages: several KV splits live, most of them empty for
+    the short slots) and a width that is not a multiple of the split (13
+    pages), qwen2's heads (g 7, a ragged 224-row tile at sq 32): f32 q at
+    atol 1e-4 against the plain version, as every f32 case."""
+    q, k, v, table, pos = _long_table_inputs(n_table + sq, n_table=n_table, sq=sq)
+    t = [torch.from_numpy(a).to(cuda) for a in (q, k, v, table, pos)]
+    _, pps, n_split = PA.plan_splits(4, 2, sq * 7, n_table, 16, 64,
+                                     PA._sm_count(t[0].device))
+    assert n_split > 1
+    kw = {}
+    if mode == "int8":
+        parts = quantize_kv(t[1], t[2])
+        t[1], t[2] = parts["k"], parts["v"]
+        kw = {"k_scale": parts["k_scale"], "v_scale": parts["v_scale"]}
+    elif mode == "int4":
+        t[1], t[2], kw = _int4_pages(t[1], t[2], 2, 64)
+    ok = PA.paged_attention_decode(*t, **kw)
+    assert torch.isfinite(ok).all()
+    torch.testing.assert_close(ok, PA.paged_attention_plain(*t, **kw), rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdt", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention_qwen2_prefill_chunk(cuda, qdt):
+    """A qwen2 prefill chunk on int4 pages: sq 32 x g 7 = 224 rows, three
+    full row tiles of 64 and a ragged one of 32.  atol 1e-4 in f32; with
+    bf16 q, 2e-2 as the int4 test above."""
+    q, k, v, table, pos = _long_table_inputs(5, n_table=8, sq=32)
+    pos[:] = [96, 64, 32, 0]
+    t = [torch.from_numpy(a).to(cuda) for a in (q, k, v, table, pos)]
+    kp, vp, kw = _int4_pages(t[1], t[2], 2, 64)
+    args = (t[0].to(qdt), kp, vp, t[3], t[4])
+    ok = PA.paged_attention_decode(*args, **kw)
+    assert torch.isfinite(ok).all()
+    torch.testing.assert_close(ok.float(), PA.paged_attention_plain(*args, **kw).float(),
+                               rtol=0, atol=1e-4 if qdt == torch.float32 else 2e-2)
 
 
 @pytest.mark.gpu
@@ -177,6 +247,29 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, kw):
     q = torch.randn(2, 200, 8, 64, generator=gen).to(cuda, dtype)
     k = torch.randn(2, 200, 2, 64, generator=gen).to(cuda, dtype)
     v = torch.randn(2, 200, 2, 64, generator=gen).to(cuda, dtype)
+    ok = FA.flash_attention(q, k, v, **kw)
+    op = FA.flash_attention_plain(q, k, v, **kw)
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    assert ok.dtype == dtype and torch.isfinite(ok).all()
+    torch.testing.assert_close(ok.float(), op.float(), rtol=rtol, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk,dh,kw", [
+    (70, 130, 64, dict(causal=False)),
+    (130, 70, 64, dict(causal=False, window=40)),
+    (100, 100, 96, dict(causal=True)),
+    (65, 65, 128, dict(causal=True, softcap=30.0)),
+])
+def test_cuda_flash_attention_ragged_tiles(cuda, dtype, sq, sk, dh, kw):
+    """sq and sk not multiples of the 64-row query tile or of the key tile,
+    sk != sq (non-causal), and head dims the tile pads (96 -> 128) or that
+    take the 32-key tile (128).  Tolerances as above."""
+    gen = torch.Generator().manual_seed(sq + sk + dh)
+    q = torch.randn(2, sq, 6, dh, generator=gen).to(cuda, dtype)
+    k = torch.randn(2, sk, 2, dh, generator=gen).to(cuda, dtype)
+    v = torch.randn(2, sk, 2, dh, generator=gen).to(cuda, dtype)
     ok = FA.flash_attention(q, k, v, **kw)
     op = FA.flash_attention_plain(q, k, v, **kw)
     rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
