@@ -11,7 +11,8 @@ its seconds):
    ``nvcc`` per source, in parallel).
 2. Hold every kernel against its plain PyTorch version on the card:
    ``rowwise_quantize`` and ``muxq_gemm`` bit for bit at gpt2-small's
-   sites; ``paged_attention`` on fp, int8 and int4 pages (int4 at
+   sites (M 1/4/20/64/128) and qwen2-0.5b's widths (M 4/20/32/64/128), the
+   weights k-major as served; ``paged_attention`` on fp, int8 and int4 pages (int4 at
    sq in {1, 4, 32} x g in {1, 7}, f32 and bf16 q, ragged tables with
    scratch page 0, a non-identity redistribution row); ``flash_attention``
    at b 1, s 2048, h 14, kv 2, dh 64 (causal, f32 and bf16, and a
@@ -26,8 +27,11 @@ its seconds):
    verify and prefill chunks on the page modes they use.
 4. Serve gpt2-small at full width (12 layers, random weights from a seed,
    int8 pages): calibrate, pack the fused MUXQ kernel buffers, serve 4
-   requests x 16 tokens, profile a repeat run, and hold the kernel path's
-   logits against the plain path's.
+   requests x 16 tokens, time ``muxq_gemm`` at each distinct site shape
+   of the served artifact (its own weights; decode and prefill M, beside
+   ``torch._int_mm``) and ``rowwise_quantize`` at the widest K, profile a
+   repeat run, and hold the kernel path's logits against the plain
+   path's.
 5. Serve qwen2-0.5b at full width (24 layers, d 896, 14/2 heads, d_ff
    4864, vocab 151936; random weights with planted activation and KV
    outliers): calibrate through the port's dense ``forward`` (matmul
@@ -39,7 +43,9 @@ its seconds):
    branches scaled down (so that the greedy stream repeats and n-gram
    drafts match), serve 4 repetitive requests x 16 tokens on int4 pages
    with speculation (k = 4) -- at least one draft rejected, one prompt
-   repeated so that its pages are shared and copied on write -- and the
+   repeated so that its pages are shared and copied on write -- time the
+   served artifact's GEMM shapes at decode, verify (4 slots x 5 rows) and
+   prefill M, and the quantize at the widest K, as for gpt2 -- and the
    same requests on f32 pages without speculation for comparison.
 6. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
@@ -68,6 +74,7 @@ INT8_OPS_S = 1979e12
 BF16_FLOPS_S = 989e12
 F32_FLOPS_S = 67e12
 TIMING_SETS = 5     # time_ms: median over this many sets of replays
+INT_MM_ROWS = 32    # the int8 yardstick's rows at decode M (it wants M > 16)
 SLEEP_CYCLES = 200_000  # time_ms: a busy wait ahead of each timed replay
 
 # tolerances, elementwise: |kernel - reference| <= atol + rtol * |reference|
@@ -162,6 +169,15 @@ def call_ms(torch, fn, iters: int = 50) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def padded_rows(x):
+    """X zero-padded to INT_MM_ROWS rows: ``torch._int_mm`` wants M > 16."""
+    if x.shape[0] >= INT_MM_ROWS:
+        return x
+    out = x.new_zeros(INT_MM_ROWS, x.shape[1])
+    out[: x.shape[0]] = x
+    return out
 
 
 def maybe_time(torch, fn, flush):
@@ -301,6 +317,13 @@ def main() -> int:
                     BF16_ULP, cap=FP_PAGED_MAX if "[fp]" in name else None,
                     **tags)
 
+    def served(mw):
+        """A site's buffers on the card as the serving path holds them
+        (``dispatch.buffer_to``: the weight k-major)."""
+        return dispatch.as_muxq_weights(dispatch.buffer_to(
+            {fld: getattr(mw, fld).numpy() for fld in dispatch.BUFFER_FIELDS},
+            dev))
+
     # -- 2. kernels against their plain versions -------------------------------
     # an outlier run of 8 channels at e = 3: one 512-wide x8 K-block
     packed = {}
@@ -310,13 +333,11 @@ def main() -> int:
         mask[torch.randperm(k, generator=gen)[:8].numpy()] = True
         mw = ops.prepare_weights(w, mask, 3, bk=512)
         assert int(mw.block_scale[0]) == 8 and mw.n_out == 8
-        packed[site] = (mask, dispatch.as_muxq_weights(
-            {fld: getattr(mw, fld).to(dev).contiguous()
-             for fld in dispatch.BUFFER_FIELDS}))
+        packed[site] = (mask, served(mw))
     for site, (k, n) in sites.items():
         mask, mw = packed[site]
         k_pad = mw.w_int.shape[0]
-        for m in (1, 4, 64, 128):
+        for m in (1, 4, 20, 64, 128):
             for dtype in ((torch.float32, torch.bfloat16) if m == 4
                           else (torch.float32,)):
                 x = torch.randn(m, k, generator=gen)
@@ -341,14 +362,12 @@ def main() -> int:
                                      f"(max abs err {err})")
             record("muxq_gemm", site=site, m=m, k_pad=k_pad, n=n, max_abs_err=0.0)
     # qwen2's widths (K 896 and 4864, N 1152 / 896 / 9728) through both kernels
-    for k, n in ((896, 1152), (896, 9728), (4864, 896)):
+    for k, n in ((896, 1152), (896, 896), (896, 9728), (4864, 896)):
         w = torch.randn(k, n, generator=gen)
         mask = np.zeros(k, bool)
         mask[torch.randperm(k, generator=gen)[:6].numpy()] = True
-        mw = ops.prepare_weights(w, mask, 2, bk=512)
-        mw = dispatch.as_muxq_weights({fld: getattr(mw, fld).to(dev).contiguous()
-                                       for fld in dispatch.BUFFER_FIELDS})
-        for m in (4, 32):
+        mw = served(ops.prepare_weights(w, mask, 2, bk=512))
+        for m in (4, 20, 32, 64, 128):
             x = torch.randn(m, k, generator=gen)
             x[:, torch.from_numpy(mask)] *= 40.0
             x = x.to(dev)
@@ -364,8 +383,8 @@ def main() -> int:
                                      "differ from their plain versions")
             record("muxq_gemm", site=f"qwen2 {k}x{n}", m=m, max_abs_err=0.0)
     print("kernel check: rowwise_quantize and muxq_gemm bit-exact at "
-          f"{len(sites)} gpt2 sites x M in (1, 4, 64, 128) and 3 qwen2 "
-          "widths x M in (4, 32)", flush=True)
+          f"{len(sites)} gpt2 sites x M in (1, 4, 20, 64, 128) and 4 qwen2 "
+          "widths x M in (4, 20, 32, 64, 128)", flush=True)
 
     h, dh, ps = cfg.n_heads, cfg.head_dim, 16
     b, n_tab = 4, 8
@@ -463,6 +482,7 @@ def main() -> int:
     x = torch.randn(m, k, generator=gen).to(dev)
     xq, sx = RQ.rowwise_quantize(x, 8, gather_idx=mw.gather_idx,
                                  in_scale=mw.in_scale)
+    xq_pad = padded_rows(xq)    # padded once, outside the timed call
 
     def rq_fn():
         return RQ.rowwise_quantize(x, 8, gather_idx=mw.gather_idx,
@@ -483,14 +503,16 @@ def main() -> int:
                                   bk=mw.bk),
         "plain_ms": time_ms(torch, lambda: G.muxq_gemm_plain(
             xq, mw.w_int, mw.block_scale, sx, mw.sw, mw.bk), flush)[0],
-        "library_ms": maybe_time(torch, lambda: torch._int_mm(xq, mw.w_int),
-                                 flush),
-        "shape": f"int8 [{m}, {k_pad}] x [{k_pad}, {n}] (gpt2 mlp_up)",
+        "library_ms": maybe_time(torch, lambda: torch._int_mm(
+            xq_pad, mw.w_int), flush),
+        "shape": f"int8 [{m}, {k_pad}] x [{k_pad}, {n}] (gpt2 mlp_up; library: "
+                 f"torch._int_mm on X zero-padded to {INT_MM_ROWS} rows)",
         **dict(zip(("bound_ms", "bound_by"), bound(
             m * k_pad + k_pad * n + 4 * (k_pad // mw.bk + m + n) + 4 * m * n,
             2 * m * n * k_pad, INT8_OPS_S)))}
 
-    # a prefill-width GEMM beside the int8 library GEMM (which needs M > 16)
+    # the prefill GEMM (4 slots x a chunk of 32 rows) beside the int8
+    # library GEMM
     xp = torch.randint(-127, 128, (128, k_pad), generator=gen,
                        dtype=torch.int8).to(dev)
     sxp = torch.rand(128, 1, generator=gen).to(dev)
@@ -621,9 +643,70 @@ def main() -> int:
               f"call {t['call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {t['bound_ms']:.5f} ms "
               f"({t['bound_by']})  [{card}]", flush=True)
-    print(f"time muxq_gemm [M=128]: kernel {t128['ms']:.4f} ms, torch._int_mm "
+    print(f"time muxq_gemm [gpt2 mlp_up, prefill M=128]: kernel {t128['ms']:.4f} ms, torch._int_mm "
           f"{t128['int_mm_ms']} ms, bound {t128['bound_ms']:.4f} ms  [{card}]",
           flush=True)
+
+    def time_sites(ctx, label, ms, k_widest):
+        """``muxq_gemm`` at each distinct (K_pad, N) that a served
+        artifact's sites run, on their own k-major weights on the card, at
+        the M of the serve's steps; ``rowwise_quantize`` at the widest K
+        (``mlp_down``'s input, ``k_widest`` channels, decode M).  Cold and
+        warm (with the cold spread), the bound, and ``torch._int_mm`` on the
+        same weight (X zero-padded to INT_MM_ROWS rows where M is smaller)."""
+        shapes = {}
+        for site, buf in sorted(ctx.kernel_buffers.items()):
+            shapes.setdefault((site.split("/")[-1], *buf["w_int"].shape), site)
+        for (base, k_pad, n), site in sorted(shapes.items()):
+            smw = dispatch.as_muxq_weights(ctx.kernel_buffers[site])
+            for m in ms:
+                xs_ = torch.randint(-127, 128, (m, k_pad), generator=gen,
+                                    dtype=torch.int8).to(dev)
+                ss_ = torch.rand(m, 1, generator=gen).to(dev)
+
+                def fn(xs_=xs_, ss_=ss_, smw=smw):
+                    return G.muxq_gemm(xs_, smw.w_int, smw.block_scale, ss_,
+                                       smw.sw, bk=smw.bk)
+                row = {"kernel": "muxq_gemm", "model": label, "site": base,
+                       "m": m, "k_pad": k_pad, "n": n}
+                row["ms"], row["spread_ms"] = time_ms(torch, fn, flush)
+                row["warm_ms"], _ = time_ms(torch, fn, None)
+                xp_ = padded_rows(xs_)   # padded once, outside the timed call
+                row["int_mm_ms"] = maybe_time(torch, lambda: torch._int_mm(
+                    xp_, smw.w_int), flush)
+                row["bound_ms"], row["bound_by"] = bound(
+                    m * k_pad + k_pad * n + 4 * (k_pad // smw.bk + m + n)
+                    + 4 * m * n, 2 * m * n * k_pad, INT8_OPS_S)
+                report["timings"].append(row)
+                print(f"time muxq_gemm [{label} {base} M={m} K_pad={k_pad} "
+                      f"N={n}]: kernel {row['ms']:.4f} ms (spread "
+                      f"{row['spread_ms'][0]:.4f}-{row['spread_ms'][1]:.4f}; "
+                      f"warm {row['warm_ms']:.4f}), torch._int_mm "
+                      f"{row['int_mm_ms']} ms (M padded to "
+                      f"{max(m, INT_MM_ROWS)}), bound {row['bound_ms']:.5f} ms "
+                      f"({row['bound_by']})  [{card}]", flush=True)
+        site = next(s for s in sorted(ctx.kernel_buffers)
+                    if s.endswith("mlp_down"))
+        buf = ctx.kernel_buffers[site]
+        k_pad = buf["gather_idx"].shape[0]
+        xr = torch.randn(4, k_widest, generator=gen).to(dev)
+
+        def rq(xr=xr, buf=buf):
+            return RQ.rowwise_quantize(xr, 8, gather_idx=buf["gather_idx"],
+                                       in_scale=buf["in_scale"])
+        row = {"kernel": "rowwise_quantize", "model": label, "site": "mlp_down",
+               "m": 4, "k_in": k_widest, "k_pad": k_pad}
+        row["ms"], row["spread_ms"] = time_ms(torch, rq, flush)
+        row["warm_ms"], _ = time_ms(torch, rq, None)
+        row["bound_ms"], row["bound_by"] = bound(
+            4 * k_widest * 4 + k_pad * 8 + 4 * k_pad + 16, 16 * k_pad,
+            F32_FLOPS_S)
+        report["timings"].append(row)
+        print(f"time rowwise_quantize [{label} mlp_down x [4, {k_widest}] f32 -> "
+              f"int8 [4, {k_pad}]]: kernel {row['ms']:.4f} ms (spread "
+              f"{row['spread_ms'][0]:.4f}-{row['spread_ms'][1]:.4f}; warm "
+              f"{row['warm_ms']:.4f}), bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']})  [{card}]", flush=True)
     phases.done("timings")
 
     policy = SitePolicy.uniform(QuantConfig(
@@ -710,6 +793,9 @@ def main() -> int:
         if launches[key] <= 0:
             raise AssertionError(f"gpt2 serve never launched {key}: {launches}")
     main_runs["gpt2-small int8"] = launches
+    # decode (4 slots) and prefill GEMMs of this serve: a prefill step runs
+    # one [4 slots, chunk] block, M 64 (chunk bucket 16) or 128 (32)
+    time_sites(engine.ctx, "gpt2", (4, 64, 128), cfg.d_ff)
     report["serve"] = {"seconds": serve_s, "launches": launches,
                        "tokens_out": rep["tokens_out"],
                        "decode_steps": rep["decode_steps"],
@@ -982,6 +1068,9 @@ def main() -> int:
     if ratio != 0.5:
         raise AssertionError(f"int4/int8 bytes_per_token ratio {ratio} != 0.5")
     main_runs["qwen2-0.5b int4 spec"] = qlaunch
+    # decode, verify (4 slots x k + 1 rows) and prefill (4 slots x a chunk
+    # bucket of 16 or 32) GEMMs of this serve
+    time_sites(qengine.ctx, "qwen2", (4, 20, 64, 128), qcfg.d_ff)
 
     # the same requests on f32 pages without speculation (also the main-path
     # run of the fp page mode): share of tokens where the streams agree

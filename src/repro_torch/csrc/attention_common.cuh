@@ -60,6 +60,7 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "launch.cuh"
 #include "ptx.cuh"
 
 namespace attn {
@@ -419,34 +420,7 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int dst_ld,
   }
 }
 
-// Launch `kern` with `smem` bytes of dynamic shared memory (opt_in: the
-// attribute alone).  Above the 48 KB default it opts in with
-// cudaFuncSetAttribute once per size
-// (`opted_in` is the caller's record for this instantiation), so a launch
-// inside a CUDA-graph capture makes no attribute call.  Above the card's
-// limit that call fails and its error is returned (and cleared, so the next
-// launch does not report it): no launch is skipped silently.
-template <typename... KArgs>
-int opt_in(void (*kern)(KArgs...), size_t* opted_in, size_t smem) {
-  if (smem > *opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) {
-      cudaGetLastError();
-      return static_cast<int>(e);
-    }
-    *opted_in = smem;
-  }
-  return 0;
-}
-template <typename... KArgs, typename... Args>
-int launch_kernel(void (*kern)(KArgs...), size_t* opted_in, dim3 grid,
-                  int threads, size_t smem, cudaStream_t st, Args... args) {
-  const int rc = opt_in(kern, opted_in, smem);
-  if (rc != 0) return rc;
-  kern<<<grid, threads, smem, st>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
+using klaunch::launch_kernel;
+using klaunch::opt_in;
 
 }  // namespace attn

@@ -39,7 +39,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # takes the stream last and returns cudaGetLastError()
 SIGNATURES = {
     "rowwise_quantize": [_P] * 5 + [_I] * 5 + [_P],
-    "muxq_gemm": [_P] * 6 + [_I] * 4 + [_P],
+    "muxq_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "paged_attention": [_P] * 11 + [_I] * 10 + [_F] * 2 + [_I] * 2 + [_P],
     "flash_attention": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_I] + [_P],
 }
@@ -111,6 +111,20 @@ def launcher(name: str) -> Callable[..., int]:
         fn.restype = ctypes.c_int
         _LAUNCHERS[name] = fn
     return fn
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the kernels' grid plans
+    size themselves to it)."""
+    import torch
+
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SM_COUNT[idx]
 
 
 def check(rc: int, name: str) -> None:

@@ -7,7 +7,8 @@ yet) and ``fp`` (passthrough).
 
 Buffer layout (statics derive from shapes — ``bk = K_pad / nb``):
 
-  w_int       int8 [K_pad, N]   packed weight, outlier rows first
+  w_int       int8 [K_pad, N]   packed weight, outlier rows first (on
+                                the device: a view of W^T [N, K_pad])
   sw          f32  [1, N]       per-out-channel weight scales
   block_scale int32 [K_pad/bk]  2^exp on outlier K-blocks, 1 elsewhere
   gather_idx  int32 [K_pad]     source channel per packed slot
@@ -112,9 +113,15 @@ def pad_buffer_to(buf: Dict[str, np.ndarray], k_pad: int) -> Dict[str, np.ndarra
 
 
 def buffer_to(buf, device) -> Dict[str, torch.Tensor]:
-    """A buffer dict as contiguous tensors on ``device``."""
-    return {f: torch.as_tensor(np.asarray(buf[f])).to(device).contiguous()
-            for f in BUFFER_FIELDS}
+    """A buffer dict as tensors on ``device``: contiguous, except ``w_int``,
+    which keeps its logical shape [K_pad, N] as the transposed view of one
+    contiguous k-major copy W^T [N, K_pad] (the layout ``muxq_gemm``'s
+    kernel reads; the plain version reads any layout)."""
+    out = {f: torch.as_tensor(np.asarray(buf[f])).to(device).contiguous()
+           for f in BUFFER_FIELDS if f != "w_int"}
+    w = torch.as_tensor(np.asarray(buf["w_int"]))
+    out["w_int"] = w.T.contiguous().to(device).T
+    return {f: out[f] for f in BUFFER_FIELDS}
 
 
 def as_muxq_weights(buf) -> ops.MuxqWeights:

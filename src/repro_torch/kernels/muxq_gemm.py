@@ -1,14 +1,19 @@
 """Fused MUXQ int8 GEMM with per-K-block exponent scaling (paper Eq. 7):
-the hand-written CUDA kernel (``csrc/muxq_gemm.cu``, int8 tensor-core MMA)
-and its plain PyTorch version.
+the hand-written CUDA kernel (``csrc/muxq_gemm.cu``, int8 tensor-core MMA,
+split-K within a thread block cluster) and its plain PyTorch version.
 
 Counterpart of ``repro/kernels/muxq_gemm.py`` (Pallas ``muxq_gemm``)::
 
     Y = (sum_kb block_scale[kb] * X_int[:, kb] @ W_int[kb, :]) * sx * sw
 
-Bound on the H100 at the decode batch: the K*N weight bytes (see the
-source note in the ``.cu`` file).  A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel, or raises — there is no fallback.
+The kernel reads the weight k-major: ``w_int`` [K, N] must be the
+transposed view of a contiguous W^T [N, K] (``w_int.T.is_contiguous()``),
+the layout ``dispatch.buffer_to`` gives the served copy.  Bound on the H100
+at the serving M: the K*N weight bytes (see the source note in the ``.cu``
+file); the kernel's C entry plans its own grid (K split across the blocks
+of a thread block cluster) from the shape and the card's SM count.  A CPU
+tensor takes the plain version (any layout); a CUDA tensor
+launches the kernel, or raises — there is no fallback and no copy.
 ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
@@ -56,8 +61,13 @@ def _launch(x_int, w_int, block_scale, sx, sw, bk):
     if bk % _BK_TILE:
         raise ValueError(f"the CUDA kernel's K tile ({_BK_TILE}) must divide "
                          f"bk={bk}")
-    want = ((x_int, torch.int8), (w_int, torch.int8), (block_scale, torch.int32),
-            (sx, torch.float32), (sw, torch.float32))
+    if not w_int.T.is_contiguous():
+        raise ValueError("muxq_gemm's kernel reads the weight k-major: w_int "
+                         f"[K, N] must be the transposed view of a contiguous "
+                         f"[N, K] tensor (strides {w_int.stride()}); "
+                         "dispatch.buffer_to stores the served copy so")
+    want = ((x_int, torch.int8), (w_int.T, torch.int8),
+            (block_scale, torch.int32), (sx, torch.float32), (sw, torch.float32))
     for t, dt in want:
         if t.device != x_int.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError("muxq_gemm takes contiguous int8/int8/int32/f32/"
@@ -65,12 +75,13 @@ def _launch(x_int, w_int, block_scale, sx, sw, bk):
     if sx.numel() != m or sw.numel() != n:
         raise ValueError(f"scales: sx {tuple(sx.shape)} vs M={m}, "
                          f"sw {tuple(sw.shape)} vs N={n}")
-    if x_int.data_ptr() % 16:
-        raise ValueError("x_int must be 16-byte aligned")
+    if x_int.data_ptr() % 16 or w_int.data_ptr() % 16:
+        raise ValueError("x_int and w_int must be 16-byte aligned")
     out = torch.empty((m, n), dtype=torch.float32, device=x_int.device)
     rc = build.launcher("muxq_gemm")(
             x_int.data_ptr(), w_int.data_ptr(), block_scale.data_ptr(),
             sx.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n, k, bk,
+            build.sm_count(x_int.device),
             torch.cuda.current_stream(x_int.device).cuda_stream)
     build.check(rc, "muxq_gemm")
     LAUNCHES += 1

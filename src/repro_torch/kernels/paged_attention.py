@@ -155,16 +155,6 @@ def workspace_floats(b: int, kvh: int, rows: int, dh: int, n_row_tiles: int,
     return n_split * b * kvh * n_row_tiles * ROW_TILE * (dh + 2)
 
 
-_SM_COUNT: dict = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _SM_COUNT:
-        _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SM_COUNT[idx]
-
-
 def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
             k_redist, v_redist, window, softcap):
     squeeze = q.dim() == 3
@@ -208,7 +198,7 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
     out = torch.empty_like(q)
     n_table = page_table.shape[1]
     n_rt, pps, n_split = plan_splits(b, kvh, sq * (h // kvh), n_table, ps,
-                                     dh, _sm_count(q.device))
+                                     dh, build.sm_count(q.device))
     ws = None if n_split == 1 else torch.empty(
         workspace_floats(b, kvh, sq * (h // kvh), dh, n_rt, n_split),
         dtype=torch.float32, device=q.device)

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build, dispatch, ops
 from repro_torch.kernels import flash_attention as FA
-from repro_torch.kernels import ops
+from repro_torch.kernels import muxq_gemm as G
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.muxq_gemm import muxq_gemm
 from repro_torch.kernels.quantize import rowwise_quantize, rowwise_quantize_plain
@@ -76,6 +77,36 @@ def test_cuda_rowwise_quantize_matches_plain(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(4, 768), (4, 896), (20, 896), (64, 768),
+                                 (4, 3072), (4, 4864), (130, 4864), (2, 9000)])
+def test_cuda_rowwise_quantize_serving_widths(cuda, dtype, m, k):
+    """The fused body at both models' widths (K_pad 1536 to 5632) and one
+    over the register budget (K_pad 9728 > 512 threads x 16 values, the
+    loop that gathers twice), decode to prefill M: codes and scales equal
+    the plain version's on the card."""
+    rng = np.random.default_rng(k + m)
+    w = rng.standard_normal((k, 4)).astype(np.float32)
+    mask = np.zeros(k, bool)
+    mask[rng.choice(k, 8, replace=False)] = True
+    mw = ops.prepare_weights(w, mask, 3, bk=512)
+    x = torch.from_numpy(_outlier_x(rng, m, k, np.nonzero(mask)[0])).to(cuda, dtype)
+    g, s = mw.gather_idx.to(cuda), mw.in_scale.to(cuda)
+    qk, sk = rowwise_quantize(x, 8, gather_idx=g, in_scale=s)
+    qp, sp = rowwise_quantize_plain(x, 8, g, s)
+    assert torch.equal(qk, qp) and torch.equal(sk, sp)
+    # the scalar paths: unfused, and fused with a gather width that is not a
+    # multiple of 4
+    qk, sk = rowwise_quantize(x[:, : k - 3].contiguous(), 8)
+    qp, sp = rowwise_quantize_plain(x[:, : k - 3], 8)
+    assert torch.equal(qk, qp) and torch.equal(sk, sp)
+    g3, s3 = g[3:].contiguous(), s[3:].contiguous()
+    qk, sk = rowwise_quantize(x, 8, gather_idx=g3, in_scale=s3)
+    qp, sp = rowwise_quantize_plain(x, 8, g3, s3)
+    assert torch.equal(qk, qp) and torch.equal(sk, sp)
+
+
+@pytest.mark.gpu
 def test_cuda_plain_kv_quantize_matches_cpu(cuda):
     x = torch.randn(64, 16, 12, 64, generator=torch.Generator().manual_seed(0))
     on_card = quantize_kv(x.to(cuda), x.to(cuda))
@@ -98,14 +129,108 @@ def test_cuda_plain_int4_quantize_matches_cpu(cuda):
         assert torch.equal(on_card[name].cpu(), t), name
 
 
+def _on_card(cuda, x, w, bs, sx, sw):
+    """GEMM operands on the card, the weight stored k-major as the served
+    copy is (``dispatch.buffer_to``)."""
+    return (torch.from_numpy(x).to(cuda), torch.from_numpy(w).T.contiguous().to(cuda).T,
+            *(torch.from_numpy(a).to(cuda) for a in (bs, sx, sw)))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 1024, 2304), (4, 3584, 768), (64, 1024, 3072)])
 def test_cuda_muxq_gemm_matches_plain(cuda, m, k, n):
     x, w, bs, sx, sw = _gemm_inputs(m, m, k, n, 512)
     args = [torch.from_numpy(a) for a in (x, w, bs, sx, sw)]
-    yk = muxq_gemm(*(a.to(cuda) for a in args), bk=512)
+    yk = muxq_gemm(*_on_card(cuda, x, w, bs, sx, sw), bk=512)
     yp = muxq_gemm(*args, bk=512)
     assert torch.equal(yk.cpu(), yp)
+
+
+# every site of the two served models: (K_pad, N) with a calibrated outlier
+# run (K_pad one 512-block wider) and, for gpt2, without one
+_SERVING_SITES = {
+    "gpt2 attn_qkv": (1536, 2304), "gpt2 attn_out": (1536, 768),
+    "gpt2 mlp_up": (1536, 3072), "gpt2 mlp_down": (3584, 768),
+    "gpt2 attn_qkv plain": (1024, 2304), "gpt2 mlp_down plain": (3072, 768),
+    "qwen2 attn_qkv": (1536, 1152), "qwen2 attn_out": (1536, 896),
+    "qwen2 mlp_up": (1536, 9728), "qwen2 mlp_down": (5632, 896)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", sorted(_SERVING_SITES))
+@pytest.mark.parametrize("m", [4, 20, 64])
+def test_cuda_muxq_gemm_serving_shapes_bit_equal(cuda, site, m):
+    """Decode (4 slots), verify (4 slots x 5 rows) and prefill (2 chunks of
+    32) at every serving site: bit-equal to the plain version on the card."""
+    k, n = _SERVING_SITES[site]
+    x, w, bs, sx, sw = _gemm_inputs(k + m, m, k, n, 512)
+    args = _on_card(cuda, x, w, bs, sx, sw)
+    assert torch.equal(muxq_gemm(*args, bk=512), G.muxq_gemm_plain(*args, 512))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 4, 20, 64, 128, 130])
+@pytest.mark.parametrize("k,n,bk", [(1536, 1000, 512), (5632, 72, 512),
+                                    (1024, 776, 128)])
+def test_cuda_muxq_gemm_ragged_bit_equal(cuda, m, k, n, bk):
+    """Every row-block size (1 to 8 n8 tiles, several row blocks at 128 and
+    130) with N not a multiple of the 64-column block, K-blocks of 128 and
+    512 (a split's K range crosses blocks of 128)."""
+    x, w, bs, sx, sw = _gemm_inputs(m * n, m, k, n, bk)
+    args = _on_card(cuda, x, w, bs, sx, sw)
+    assert torch.equal(muxq_gemm(*args, bk=bk), G.muxq_gemm_plain(*args, bk))
+
+
+@pytest.mark.gpu
+def test_cuda_muxq_gemm_repeated_and_across_streams(cuda):
+    """Calls of different shapes and split counts back to back, a call on
+    another stream, then the first call again, all bit-equal."""
+    cases = [_on_card(cuda, *_gemm_inputs(s, m, k, n, 512))
+             for s, (m, k, n) in enumerate([(4, 1536, 3072), (20, 5632, 896),
+                                            (1, 1024, 768), (64, 1536, 2304)])]
+    want = [G.muxq_gemm_plain(*a, 512) for a in cases]
+    for _ in range(3):
+        for a, y in zip(cases, want):
+            assert torch.equal(muxq_gemm(*a, bk=512), y)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        y_side = muxq_gemm(*cases[1], bk=512)
+    side.synchronize()
+    assert torch.equal(y_side, want[1])
+    assert torch.equal(muxq_gemm(*cases[0], bk=512), want[0])
+
+
+@pytest.mark.gpu
+def test_cuda_muxq_gemm_refuses_an_n_major_weight(cuda):
+    x, w, bs, sx, sw = _gemm_inputs(0, 4, 1024, 768, 512)
+    args = [torch.from_numpy(a).to(cuda) for a in (x, w, bs, sx, sw)]
+    with pytest.raises(ValueError, match="k-major"):
+        muxq_gemm(*args, bk=512)
+
+
+@pytest.mark.gpu
+def test_cuda_served_weights_are_k_major(cuda):
+    """``dispatch.buffer_to`` puts one k-major int8 copy of the weight on
+    the card; the fused path runs through the kernel on it."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((896, 1152)).astype(np.float32)
+    mask = np.zeros(896, bool)
+    mask[[4, 500]] = True
+    buf = {f: getattr(ops.prepare_weights(w, mask, 2), f).numpy()
+           for f in dispatch.BUFFER_FIELDS}
+    on_card = dispatch.buffer_to(buf, cuda)
+    wi = on_card["w_int"]
+    assert wi.T.is_contiguous() and wi.untyped_storage().nbytes() == wi.numel()
+    assert torch.equal(wi.cpu(), torch.from_numpy(buf["w_int"]))
+    x = torch.from_numpy(_outlier_x(rng, 4, 896, [4, 500])).to(cuda)
+    before = G.LAUNCHES
+    y = dispatch.fused_matmul(x, on_card)
+    assert G.LAUNCHES == before + 1
+    prev = dispatch.set_fused_impl("ref")
+    try:
+        assert torch.equal(y, dispatch.fused_matmul(x, on_card))
+    finally:
+        dispatch.set_fused_impl(prev)
 
 
 @pytest.mark.gpu
@@ -203,7 +328,7 @@ def test_cuda_paged_attention_splits_the_table(cuda, mode, n_table, sq):
     q, k, v, table, pos = _long_table_inputs(n_table + sq, n_table=n_table, sq=sq)
     t = [torch.from_numpy(a).to(cuda) for a in (q, k, v, table, pos)]
     _, pps, n_split = PA.plan_splits(4, 2, sq * 7, n_table, 16, 64,
-                                     PA._sm_count(t[0].device))
+                                     build.sm_count(t[0].device))
     assert n_split > 1
     kw = {}
     if mode == "int8":

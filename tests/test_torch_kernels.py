@@ -8,6 +8,7 @@ within the tolerance stated at each test.  The CUDA kernels are held
 against the plain versions in ``test_torch_cuda.py``.
 """
 import ast
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -21,8 +22,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.paged_attention import paged_attention_ref as jpaged_ref
 from repro.serve.kvcache import quantize_kv as jquantize_kv
+from repro_torch.core.context import QuantCtx
 from repro_torch.core.muxq import QuantConfig
-from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels import build, dispatch, ops
+from repro_torch.kernels import muxq_gemm as G
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.kernels.muxq_gemm import accumulate_plain, muxq_gemm
 from repro_torch.kernels.quantize import rowwise_quantize
@@ -188,6 +191,83 @@ def test_pad_buffer_to_matches_reference():
     y0 = dispatch.fused_matmul(x, dispatch.buffer_to(buf, "cpu"))
     y1 = dispatch.fused_matmul(x, dispatch.buffer_to(pt, "cpu"))
     torch.testing.assert_close(y0, y1, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The served weight layout: one k-major int8 copy per site
+# ---------------------------------------------------------------------------
+
+def test_buffer_to_keeps_the_reference_buffers_k_major():
+    """The reference's packed buffer, moved by ``buffer_to``: every field
+    equals the reference's array; the weight is the transposed view of one
+    contiguous W^T (one int8 copy), and the fused path on it gives the
+    reference's ``muxq_linear_ref`` output bit for bit."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((200, 48)).astype(np.float32)
+    mask = np.zeros(200, bool)
+    mask[[3, 17, 150]] = True
+    bj = jdispatch.pack_site_buffer(jnp.asarray(w), mask, JQuantConfig(**CFG),
+                                    bk=64)
+    moved = dispatch.buffer_to({f: np.asarray(v) for f, v in bj.items()}, "cpu")
+    for f in dispatch.BUFFER_FIELDS:
+        np.testing.assert_array_equal(moved[f].numpy(), np.asarray(bj[f]),
+                                      err_msg=f)
+    wi = moved["w_int"]
+    assert wi.T.is_contiguous() and not wi.is_contiguous()
+    assert wi.untyped_storage().nbytes() == wi.numel()
+    x = rng.standard_normal((5, 200)).astype(np.float32)
+    yj = jops.muxq_linear_ref(jnp.asarray(x), jdispatch.as_muxq_weights(
+        {f: jnp.asarray(v) for f, v in bj.items()}))
+    yt = dispatch.fused_matmul(torch.from_numpy(x), moved)
+    np.testing.assert_array_equal(yt.numpy(), np.asarray(yj))
+
+
+def test_quant_ctx_holds_one_k_major_int8_weight_per_site():
+    """A ``QuantCtx`` over four packed sites holds K_pad x N int8 bytes a
+    site and no more: the weight's k-major copy is its only int8 tensor."""
+    rng = np.random.default_rng(12)
+    bufs = {}
+    for i, (k, n) in enumerate([(96, 40), (200, 32), (64, 72), (130, 16)]):
+        mask = np.zeros(k, bool)
+        mask[rng.choice(k, 3, replace=False)] = True
+        w = rng.standard_normal((k, n)).astype(np.float32)
+        bufs[f"layer{i}/mlp_up"] = dispatch.pack_site_buffer(
+            w, mask, QuantConfig(**CFG), bk=32)
+    ctx = QuantCtx(QuantConfig(**CFG), device="cpu", kernel_buffers=bufs)
+    total = 0
+    for site, buf in ctx.kernel_buffers.items():
+        np.testing.assert_array_equal(buf["w_int"].numpy(), bufs[site]["w_int"])
+        assert buf["w_int"].T.is_contiguous()
+        int8 = [t for t in buf.values() if t.dtype == torch.int8]
+        assert len(int8) == 1
+        total += int8[0].untyped_storage().nbytes()
+    assert total == sum(b["w_int"].size for b in bufs.values())
+
+
+def test_muxq_gemm_launch_takes_only_a_k_major_weight(monkeypatch):
+    """``_launch`` (what a CUDA tensor reaches) refuses an n-major weight and
+    a k-major view whose rows are not packed with a clear error, and hands a k-major one to the
+    kernel as it is, without a copy.  A stub stands in for the kernel
+    library, so no card is needed."""
+    calls = []
+    monkeypatch.setattr(build, "launcher",
+                        lambda name: lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=None))
+    x, w, bs, sx, sw = (torch.from_numpy(a)
+                        for a in _gemm_inputs(1, 4, 1024, 64, 512))
+    strided = torch.cat([w.T, w.T], 1)[:, :1024].T   # rows of W^T 2K apart
+    for bad in (w, strided):
+        with pytest.raises(ValueError, match="k-major"):
+            G._launch(x, bad, bs, sx, sw, 512)
+    assert not calls
+    w_t = w.T.contiguous()
+    before = G.LAUNCHES
+    G._launch(x, w_t.T, bs, sx, sw, 512)
+    assert G.LAUNCHES == before + 1 and len(calls) == 1
+    assert calls[0][1] == w_t.data_ptr()
+    assert calls[0][6:11] == (4, 64, 1024, 512, 132)   # M, N, K, bk, SMs
 
 
 def test_fused_dynamic_outliers_cannot_pack():

@@ -303,3 +303,16 @@ def test_quant_ctx_refuses_unported_backends(model):
     fused = QuantCtx(SitePolicy.uniform(QuantConfig(**FUSED)), device="cpu")
     with pytest.raises(RuntimeError, match="kernel buffers"):
         fused("layer0/attn_qkv", torch.zeros(1, 64), torch.zeros(64, 8))
+
+
+def test_entry_points_run_on_the_card_by_default():
+    """The port's entry points default to the card (``device="cuda"``); the
+    CPU tests pass ``device="cpu"`` themselves."""
+    import inspect
+
+    from repro_torch.quantize import calibrate_model
+    from repro_torch.serve.pool import PagePool as Pool
+
+    for fn in (ServeEngine.__init__, QuantCtx.__init__, as_ctx, Pool.__init__,
+               calibrate_model, T.init_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn

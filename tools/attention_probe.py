@@ -207,7 +207,7 @@ def timeline(dev, card):
         for label, mode, sq, heads, kvh, pos in PAGED_SHAPES:
             args, kw = paged_inputs(mode, sq, heads, kvh, pos, dev)
             n_rt, _, n_split = PA.plan_splits(len(pos), kvh, sq * heads // kvh,
-                                              N_TAB, PS, DH, PA._sm_count(dev))
+                                              N_TAB, PS, DH, build.sm_count(dev))
             n_blk = n_split * n_rt * len(pos) * kvh
             for cold in (False, True):
                 PA.paged_attention_decode(*args, **kw)

@@ -1,7 +1,7 @@
-"""Run the port's two attention kernels (``src/repro_torch/csrc``) on the
-CPU: a host emulation of their CUDA source.  It checks a kernel's
-indexing, fragment layouts, masks, split schedule and arithmetic where
-there is no card and no ``nvcc``.
+"""Run the port's CUDA kernels (``src/repro_torch/csrc``) on the CPU: a
+host emulation of their CUDA source.  It checks a kernel's indexing,
+fragment layouts, masks, split schedule and arithmetic where there is no
+card and no ``nvcc``.
 
 The ``.cu`` sources and their headers are compiled by the host C++
 compiler against ``include/``:
@@ -12,8 +12,13 @@ compiler against ``include/``:
 - a tensor-core sum truncates every addend at the largest one's f32 ulp
   and rounds toward zero.  On the H100 that gave f32 errors of the size
   the card shows.
+- an int8 ``mma.sync`` sums exactly, modulo 2^32;
 - a ``cp.async`` copy lands when a ``wait_group`` covers its committed
-  group, and a thread that ends with copies in flight aborts.
+  group, and a thread that ends with copies in flight aborts;
+- a thread block cluster's blocks run at once, with a cluster barrier and
+  each other's shared memory mapped; a grid's clusters (single blocks
+  without a cluster launch) run one after the other, in the order that
+  ``patch(block_order=...)`` names (forward, reverse or shuffled).
 
 It says nothing of speed, occupancy, races between threads, or what
 ``nvcc`` accepts.
@@ -22,12 +27,13 @@ It says nothing of speed, occupancy, races between threads, or what
     PYTHONPATH=src python tools/cuda_emulator/emulate.py smoke
 
 ``smoke`` runs ``chip_smoke.py`` with the reduced configurations and a
-short flash shape.  The attention kernels run in emulation, the other
-kernels in their plain versions (launches counted), and the timers are
-stubbed.  It takes a few minutes.  ``patch()`` points the attention
-wrappers' launches at the emulated libraries, so that
-``paged_attention._launch`` and ``flash_attention._launch`` run on CPU
-tensors (``tests/test_torch_attention_emulated.py``).
+short flash shape.  Every kernel runs in emulation (the GEMM's plain
+version, counted as a launch, where a reduced width makes K-blocks
+narrower than the kernel's 64-wide K tile) and the timers are stubbed.
+It takes about seven minutes.  ``patch()`` points the wrappers'
+launches at the emulated libraries, so that every kernel's ``_launch``
+runs on CPU tensors (``tests/test_torch_attention_emulated.py``,
+``tests/test_torch_gemm_emulated.py``).
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "src" / "repro_torch" / "csrc"
 INCLUDE = Path(__file__).resolve().parent / "include"
 BUILD_DIR = ROOT / "build" / "cuda_emulator"
-KERNELS = ("paged_attention", "flash_attention")
+KERNELS = ("paged_attention", "flash_attention", "muxq_gemm", "rowwise_quantize")
 # the two lines of the sources that the host compiler cannot take
 LAUNCH = ("kern<<<grid, threads, smem, st>>>(args...);",
           "emu_launch(kern, grid, threads, smem, args...);")
@@ -75,9 +81,8 @@ def build() -> Dict[str, Path]:
     libs = {n: out / f"lib{n}.so" for n in KERNELS}
     if all(p.exists() for p in libs.values()):
         return libs
-    for name, (old, _) in (("attention_common.cuh", LAUNCH),
-                           ("paged_attention.cu", SHARED),
-                           ("flash_attention.cu", SHARED)):
+    for name, (old, _) in (("launch.cuh", LAUNCH),
+                           *((f"{n}.cu", SHARED) for n in KERNELS)):
         if old not in (CSRC / name).read_text():
             raise RuntimeError(f"{name} no longer holds {old!r}: update the "
                                "emulation")
@@ -111,13 +116,13 @@ def build() -> Dict[str, Path]:
 
 
 @contextlib.contextmanager
-def patch(n_sm: int = 132):
-    """Within the block, the attention wrappers' launches (``_launch``)
-    call the emulated kernels on CPU tensors, on a card of ``n_sm``
-    SMs."""
+def patch(n_sm: int = 132, block_order: str = "forward"):
+    """Within the block, the wrappers' launches (``_launch``) call the
+    emulated kernels on CPU tensors, on a card of ``n_sm`` SMs, running a
+    grid's blocks in ``block_order``: "forward", "reverse" or
+    "shuffle:<seed>"."""
     import torch
     from repro_torch.kernels import build as kbuild
-    from repro_torch.kernels import paged_attention as PA
 
     libs, fns = build(), {}
 
@@ -129,21 +134,26 @@ def patch(n_sm: int = 132):
             fns[name] = fn
         return fns[name]
 
-    saved = kbuild.launcher, PA._sm_count, torch.cuda.current_stream
+    saved = kbuild.launcher, kbuild.sm_count, torch.cuda.current_stream
+    saved_order = os.environ.get("CUDA_EMU_BLOCK_ORDER")
     kbuild.launcher = launcher
-    PA._sm_count = lambda device: n_sm
+    kbuild.sm_count = lambda device: n_sm
     torch.cuda.current_stream = lambda device=None: types.SimpleNamespace(
         cuda_stream=None)
+    os.environ["CUDA_EMU_BLOCK_ORDER"] = block_order
     try:
         yield
     finally:
-        kbuild.launcher, PA._sm_count, torch.cuda.current_stream = saved
+        kbuild.launcher, kbuild.sm_count, torch.cuda.current_stream = saved
+        if saved_order is None:
+            os.environ.pop("CUDA_EMU_BLOCK_ORDER", None)
+        else:
+            os.environ["CUDA_EMU_BLOCK_ORDER"] = saved_order
 
 
 def smoke() -> int:
     """``chip_smoke.py`` on the CPU: reduced configs, flash at s 160, the
-    attention kernels emulated, the other kernels' plain versions counted
-    as launches, no timings.  Returns its exit code."""
+    kernels emulated, no timings.  Returns its exit code."""
     import torch
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as FA
@@ -185,15 +195,18 @@ def smoke() -> int:
     def flash(q, k, v, *, causal=True, window=None, softcap=None):
         return FA._launch(q, k, v, causal, window, softcap)
 
-    def counted(fn, module):
-        def call(*a, **k):
-            module.LAUNCHES += 1
-            return fn(*a, **k)
-        return call
+    def quantize(x, bits=8, gather_idx=None, in_scale=None):
+        return RQ._launch(x, bits, gather_idx, in_scale)
+
+    def gemm(x_int, w_int, block_scale, sx, sw, *, bk=512):
+        if bk % G._BK_TILE:     # reduced qwen2: K-blocks of 56 channels
+            G.LAUNCHES += 1
+            return G.muxq_gemm_plain(x_int, w_int, block_scale, sx, sw, bk)
+        return G._launch(x_int, w_int, block_scale, sx, sw, bk)
 
     PA.paged_attention_decode, FA.flash_attention = paged, flash
-    ops.rowwise_quantize = counted(ops.rowwise_quantize, RQ)
-    ops.muxq_gemm = counted(ops.muxq_gemm, G)
+    RQ.rowwise_quantize = ops.rowwise_quantize = quantize
+    G.muxq_gemm = ops.muxq_gemm = gemm
     ns = {"__name__": "chip_smoke_emulated"}
     exec(compile(text, "chip_smoke.py (emulated)", "exec"), ns)
     ns["time_ms"] = lambda torch, fn, flush, iters=20: (fn(), (0.0, (0.0, 0.0)))[1]

@@ -51,6 +51,32 @@ inline void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
   for (int e = 0; e < 4; ++e) d[e] = out[e];
 }
 
+// D (16x8 s32) += A (16x32 s8, row) * B (32x8 s8, col); sums wrap modulo
+// 2^32 as the tensor cores' do
+inline void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) w.a[lane][i] = a[i];
+  w.b[lane][0] = b0;
+  w.b[lane][1] = b1;
+  __syncwarp();
+  auto byte = [](uint32_t reg, int k) {
+    return static_cast<int32_t>(static_cast<int8_t>((reg >> (8 * (k % 4))) & 0xffu));
+  };
+  uint32_t out[4];
+  for (int e = 0; e < 4; ++e) {
+    const int r = g + 8 * (e >> 1), n = 2 * t + (e & 1);
+    uint32_t acc = static_cast<uint32_t>(d[e]);
+    for (int k = 0; k < 32; ++k)
+      acc += static_cast<uint32_t>(
+          byte(w.a[(r % 8) * 4 + (k % 16) / 4][(r >= 8) + 2 * (k >= 16)], k) *
+          byte(w.b[n * 4 + (k % 16) / 4][k >= 16], k));
+    out[e] = acc;
+  }
+  __syncwarp();
+  for (int e = 0; e < 4; ++e) d[e] = static_cast<int>(out[e]);
+}
+
 inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
   EmuWarp& w = emu_warp();
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -70,17 +96,8 @@ inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
 
 // cp.async: a copy lands when a wait_group covers its committed group, so
 // reading a stage too early sees stale bytes; a thread that ends with copies
-// uncommitted or unwaited aborts (emu_launch checks)
-struct EmuCopy {
-  void* dst;
-  const void* src;
-  int n;
-};
-inline thread_local std::vector<EmuCopy> emu_issued;
-inline thread_local std::vector<std::vector<EmuCopy>> emu_committed;
-inline bool emu_copies_in_flight() {
-  return !emu_issued.empty() || !emu_committed.empty();
-}
+// uncommitted or unwaited aborts (emu_launch checks; the queues are in
+// cuda_runtime.h, which every kernel includes)
 template <int N>
 inline void cp_async(void* dst, const void* src) {
   if (reinterpret_cast<uintptr_t>(dst) % N || reinterpret_cast<uintptr_t>(src) % N) {
@@ -89,6 +106,11 @@ inline void cp_async(void* dst, const void* src) {
   }
   emu_issued.push_back({dst, src, N});
 }
+// (copy false: the copy lands 16 zero bytes)
+inline void cp_async_zfill16(void* dst, const void* src, bool copy) {
+  cp_async<16>(dst, src);
+  if (!copy) emu_issued.back().src = nullptr;
+}
 inline void cp_async_commit() {
   emu_committed.push_back(std::move(emu_issued));
   emu_issued.clear();
@@ -96,9 +118,24 @@ inline void cp_async_commit() {
 template <int N>
 inline void cp_async_wait() {
   while (emu_committed.size() > static_cast<size_t>(N)) {
-    for (const EmuCopy& c : emu_committed.front()) memcpy(c.dst, c.src, c.n);
+    for (const EmuCopy& c : emu_committed.front()) {
+      if (c.src != nullptr)
+        memcpy(c.dst, c.src, c.n);
+      else
+        memset(c.dst, 0, c.n);
+    }
     emu_committed.erase(emu_committed.begin());
   }
+}
+
+// thread block clusters (emu_launch_clusters runs a cluster's blocks at once)
+inline unsigned cluster_rank() { return emu_cluster_rank; }
+inline void cluster_sync() { emu_cluster->bar->arrive_and_wait(); }
+inline uint4 ld_cluster_v4(const void* p, unsigned rank) {
+  const auto off = static_cast<const unsigned char*>(p) - emu_block->smem.data();
+  uint4 v;
+  memcpy(&v, emu_cluster->blocks[rank]->smem.data() + off, sizeof(v));
+  return v;
 }
 
 }  // namespace ptx
