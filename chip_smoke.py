@@ -32,7 +32,25 @@ its seconds):
    ``torch._int_mm``) and ``rowwise_quantize`` at the widest K, profile a
    repeat run, and hold the kernel path's logits against the plain
    path's.
-5. Serve qwen2-0.5b at full width (24 layers, d 896, 14/2 heads, d_ff
+5. The paper's grid on the ``fake`` backend, gpt2-small at full width on
+   the same weights: calibrate on two ``TokenPipeline`` batches, then for
+   fp, naive, MUXQ (paper and fused forms), LLM.int8(), SmoothQuant and
+   MUXQ + SmoothQuant at per-tensor activations and weights, and naive
+   and MUXQ at per-token / per-channel, print the mean cross-entropy on 4
+   batches of 4 x 256 tokens and the logits' relative distance from fp.
+   At one full-width site, hold the fake fused MUXQ form against the
+   real-int8 ``muxq_matmul_fused`` (f32 dot-product error bound), and
+   ``muxq_matmul_fused`` against ``dispatch.fused_matmul`` through the
+   kernels (equal codes and scales, FUSED_RTOL).
+6. Write a bundle and serve it: ``quantize_model`` with MUXQ + SmoothQuant
+   on the fused backend (pack target ``fused``, int4 KV calibration),
+   ``save`` (under ``build/``, removed once loaded), ``QuantArtifact.load``,
+   and serve 4 requests x 16 tokens on int4 pages from the loaded bundle
+   and from the in-memory artifact: identical streams and counters, and
+   the fused kernels bit-equal to their plain versions in place.
+7. Run the serving launcher in-process (``--backend fused --quant muxq
+   --kv-mode int4 --spec-mode ngram --json-out ...``) on the reduced gpt2.
+8. Serve qwen2-0.5b at full width (24 layers, d 896, 14/2 heads, d_ff
    4864, vocab 151936; random weights with planted activation and KV
    outliers): calibrate through the port's dense ``forward`` (matmul
    sites and KV channels) and build the artifact with ``kv_calib``; hold
@@ -47,12 +65,14 @@ its seconds):
    served artifact's GEMM shapes at decode, verify (4 slots x 5 rows) and
    prefill M, and the quantize at the widest K, as for gpt2 -- and the
    same requests on f32 pages without speculation for comparison.
-6. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
+9. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
-``launches`` in the JSON line counts the launches of the serving runs of
-phases 4 and 5 (each run starts from zero counts); ``flash_attention`` is
-on no serving path and has 0.  It imports nothing of JAX or of the
+``launches`` in the JSON line counts the launches of the full-width
+serving runs of phases 4, 6 and 8 (each run starts from zero counts); the
+launcher's reduced-width run of phase 7 keeps its own counts under
+``launcher`` in ``chip_smoke.json``.  ``flash_attention`` is on no
+serving path and has 0.  It imports nothing of JAX or of the
 reference package.  Details of every measurement also go to
 ``chip_smoke.json`` in the output directory at the root of the checkout
 (``out_dir`` below, listed in ``.gitignore``).
@@ -60,6 +80,8 @@ reference package.  Details of every measurement also go to
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -96,6 +118,10 @@ VERIFY_RTOL = 1e-3  # in-situ verify logits on int4 pages with fp weights,
                     # paged kernel vs plain, relative to max |logits|: the
                     # attention sums' order differs, and an ulp may move an
                     # int4 K/V code
+FUSED_RTOL = 4 * 2.0 ** -24    # muxq_matmul_fused vs the fused kernels at
+                               # one site: the same int32 sum times the same
+                               # two f32 scales, up to the order of the two
+                               # products (2 roundings)
 NUDGE_FACTOR = 2.0  # in-situ verify logits under fused MUXQ, kernel vs plain:
                     # at most this x the plain-vs-plain spread that 1-ulp
                     # nudges of every attention output make
@@ -215,16 +241,22 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core import quantizers as Q
     from repro_torch.core.context import CollectCtx, FpCtx, as_ctx
-    from repro_torch.core.muxq import QuantConfig
+    from repro_torch.core.muxq import (QuantConfig, muxq_fake_quant_act,
+                                       muxq_int32, muxq_matmul_fused, qmatmul)
     from repro_torch.core.policy import SitePolicy
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.kernels import build, dispatch, ops
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import muxq_gemm as G
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import quantize as RQ
+    from repro_torch.launch import serve as launch_serve
     from repro_torch.models import transformer as T
-    from repro_torch.quantize import build_artifact, calibrate_model
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.quantize import (QuantArtifact, build_artifact,
+                                      calibrate_model, quantize_model)
     from repro_torch.serve import kvq
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.kvcache import quantize_kv
@@ -233,6 +265,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
     card = smi_line()
     print(f"card: {card}", flush=True)
     report = {"card": card, "torch": torch.__version__,
@@ -891,11 +924,206 @@ def main() -> int:
           f"{err_c:.3e}, argmax agreement {agree:.3f}", flush=True)
     if err_b > 1e-3 * scale_b:
         raise AssertionError("(b) paged kernel logits disagree with the plain path")
-    del engine, params, art, cal_pool
+    del engine, art, cal_pool
     torch.cuda.empty_cache()
     phases.done("serve gpt2-small")
 
-    # -- 5. end to end: qwen2-0.5b at full width, int4 pages + speculation ------
+    # -- 5. the paper's grid on the fake backend, gpt2-small at full width ------
+    # the same weights; mean cross-entropy on the synthetic corpus, and the
+    # logits' relative distance from the fp logits, for every method of the
+    # paper's Table 1 (static calibrated masks, exp_factor 2)
+    pipe = TokenPipeline(PipelineConfig(seq_len=256, global_batch=4, seed=0))
+    grid_cal = [next(pipe) for _ in range(2)]
+    grid_eval = [pipe.batch_at(100 + i) for i in range(4)]
+    stats, _ = calibrate_model(cfg, params, grid_cal, device=dev)
+    per_tensor = dict(outlier_mode="static", act_granularity="per_tensor",
+                      weight_granularity="per_tensor")
+    per_token = dict(outlier_mode="static", act_granularity="per_token",
+                     weight_granularity="per_channel")
+    grid = {"fp": None,
+            "naive per-tensor": QuantConfig(method="naive", **per_tensor),
+            "muxq paper per-tensor": QuantConfig(method="muxq", **per_tensor),
+            "muxq fused per-tensor": QuantConfig(method="muxq", muxq_form="fused",
+                                                 **per_tensor),
+            "llm_int8 per-tensor": QuantConfig(method="llm_int8", **per_tensor),
+            "smoothquant per-tensor": QuantConfig(method="smoothquant",
+                                                  **per_tensor),
+            "muxq_smooth per-tensor": QuantConfig(method="muxq_smooth",
+                                                  **per_tensor),
+            "naive per-token": QuantConfig(method="naive", **per_token),
+            "muxq per-token": QuantConfig(method="muxq", **per_token)}
+    grid_out, fp_logits = {}, []
+    with torch.no_grad():
+        for label, qc in grid.items():
+            ctx = FpCtx() if qc is None else quantize_model(
+                cfg, params, stats, qc, prequantize=False, device=dev).ctx(dev)
+            ces, dist = [], []
+            for i, batch in enumerate(grid_eval):
+                tokens = torch.as_tensor(batch["tokens"], device=dev)
+                logits = T.forward(cfg, params, tokens, ctx)["logits"][
+                    ..., :cfg.vocab_size]
+                ces.append(float(cross_entropy(
+                    logits, torch.as_tensor(batch["labels"], device=dev),
+                    cfg.vocab_size)))
+                if qc is None:
+                    fp_logits.append(logits)
+                dist.append(float((logits - fp_logits[i]).norm()
+                                  / fp_logits[i].norm()))
+            ce = sum(ces) / len(ces)
+            rel = sum(dist) / len(dist)
+            if not all(math.isfinite(v) for v in ces + dist):
+                raise AssertionError(f"paper grid {label}: non-finite {ces} {dist}")
+            grid_out[label] = {"cross_entropy": ce, "logits_rel_dist": rel,
+                               "per_batch": ces}
+            print(f"paper grid [{label}]: mean cross-entropy {ce:.6f} over "
+                  f"{len(grid_eval)} batches of {tuple(tokens.shape)} tokens, "
+                  f"logits |q - fp| / |fp| {rel:.6f}  [{card}]", flush=True)
+    del fp_logits
+    # one full-width site (layer 0 mlp_up, its calibrated mask): (i) the fake
+    # fused form against the real-int8 muxq_matmul_fused (per-tensor): the
+    # int product is exact, the fake one an f32 dot product, so the bound is
+    # the standard f32 dot-product error gamma_(K+4) * (|xq| @ |wq|); (ii)
+    # muxq_matmul_fused (per-token, per-channel) against dispatch.fused_matmul
+    # through the two kernels: equal codes and scales, outputs within
+    # FUSED_RTOL (the same int32 sum times the same two scales)
+    site = "layer0/mlp_up"
+    w_site = params["layers"][0]["mlp"]["wi"]
+    m_site = torch.as_tensor(stats.masks()[site], device=dev)
+    if not bool(m_site.any()):
+        raise AssertionError(f"{site}: the calibrated mask is empty")
+    xs = torch.randn(64, d, generator=torch.Generator().manual_seed(6)).to(dev)
+    xs[:, m_site] *= 40.0
+    qc = QuantConfig(method="muxq", muxq_form="fused", **per_tensor)
+    fake = qmatmul(xs, w_site, qc, mask=m_site)
+    real = muxq_matmul_fused(xs, w_site, qc.replace(real_int8=True), m_site)
+    xq = muxq_fake_quant_act(xs, qc, m_site)
+    wq = Q.fake_quant(w_site, 8, "per_tensor")
+    dot_bound = (d + 4) * 2.0 ** -24 * (xq.abs() @ wq.abs())
+    err_i = float((fake - real).abs().max())
+    if not bool(((fake - real).abs() <= dot_bound).all()):
+        raise AssertionError(f"{site}: fake fused MUXQ vs real int8 max abs err "
+                             f"{err_i} over the f32 dot-product bound")
+    qt = QuantConfig(method="muxq", **per_token)
+    bi, sb, _, _, _ = muxq_int32(xs, w_site, qt, m_site)
+    y_ref = muxq_matmul_fused(xs, w_site, qt, m_site)
+    buf = dispatch.buffer_to(dispatch.pack_site_buffer(
+        w_site, m_site.cpu().numpy(), qt.replace(backend="fused")), dev)
+    kq, ks = RQ.rowwise_quantize(xs, 8, gather_idx=buf["gather_idx"],
+                                 in_scale=buf["in_scale"])
+    live = buf["in_scale"] != 0
+    y_kern = dispatch.fused_matmul(xs, buf)
+    torch.cuda.synchronize()
+    if not (torch.equal(kq[:, live], bi[:, buf["gather_idx"][live].long()])
+            and not bool(kq[:, ~live].any()) and torch.equal(ks, sb)):
+        raise AssertionError(f"{site}: kernel codes differ from muxq_matmul_fused's")
+    err_ii = float((y_kern - y_ref).abs().max())
+    if not bool(((y_kern - y_ref).abs() <= FUSED_RTOL * y_ref.abs()).all()):
+        raise AssertionError(f"{site}: fused kernels vs muxq_matmul_fused max abs "
+                             f"err {err_ii} over rtol {FUSED_RTOL}")
+    print(f"paper grid site {site} [64 x {d}] @ [{d} x {w_site.shape[1]}], "
+          f"{int(m_site.sum())} outlier channels: (i) fake fused form vs real "
+          f"int8 max abs err {err_i:.3e} (within the f32 dot-product bound); "
+          f"(ii) kernels vs muxq_matmul_fused: codes and scales equal, max abs "
+          f"err {err_ii:.3e} (rtol {FUSED_RTOL})", flush=True)
+    report["paper_grid"] = {"methods": grid_out, "site": site,
+                            "fake_vs_real_max_abs_err": err_i,
+                            "kernels_vs_reference_max_abs_err": err_ii}
+    phases.done("paper grid (fake backend)")
+
+    # -- 6. write, load and serve a bundle at full width ------------------------
+    # MUXQ + SmoothQuant on the fused backend, only the kernel buffers kept
+    # (pack target "fused"), int4 KV calibration; saved, loaded back, and
+    # served on int4 pages beside the in-memory artifact.  The bundle (its
+    # f32 embedding alone is 154 MB) goes under build/, not the output
+    # directory, and is removed once loaded; its files' sizes are recorded
+    out_dir = ROOT / "chiprun_out"
+    spol = SitePolicy.uniform(QuantConfig(method="muxq_smooth", backend="fused",
+                                          **per_token))
+    sart = quantize_model(cfg, params, grid_cal, spol, pack_target="fused",
+                          device=dev)
+    bundle = Path(sart.save(ROOT / "build" / "chip_smoke_bundle"))
+    lart = QuantArtifact.load(bundle)
+    bundle_files = {f.name: f.stat().st_size for f in sorted(bundle.iterdir())}
+    shutil.rmtree(bundle)
+    print(f"bundle: {len(lart.kernel_buffers)} fused sites, "
+          f"{len(lart.smooth_factors)} smooth factors, kv_calib "
+          f"{sorted(lart.kv_calib)}, meta {lart.meta}; files {bundle_files}",
+          flush=True)
+    serve_kw = dict(max_batch=4, s_max=256, prefill_chunk=32, kv_mode="int4",
+                    device=dev)
+    mem_engine = ServeEngine(cfg, sart, **serve_kw)
+    disk_engine = ServeEngine(cfg, lart, **serve_kw)
+    mreqs, mrep, _, _ = serve(mem_engine, prompts, 16, "gpt2-small int4 "
+                              "muxq_smooth, in-memory artifact")
+    dreqs, drep, dlaunch, dsecs = serve(disk_engine, prompts, 16,
+                                        "gpt2-small int4 muxq_smooth, saved bundle")
+    if [r.out_tokens for r in dreqs] != [r.out_tokens for r in mreqs]:
+        raise AssertionError("the saved bundle serves other streams than the "
+                             "in-memory artifact")
+    for key in ("tokens_out", "decode_steps", "prefill_steps", "prefill_chunks",
+                "prefix_hits", "cow_copies", "preemptions"):
+        if drep[key] != mrep[key]:
+            raise AssertionError(f"bundle serve counter {key}: {drep[key]} vs "
+                                 f"{mrep[key]} in memory")
+    for key in ("rowwise_quantize", "muxq_gemm", "paged_attention[int4]"):
+        if dlaunch[key] <= 0:
+            raise AssertionError(f"bundle serve never launched {key}: {dlaunch}")
+    main_runs["gpt2-small int4 muxq_smooth bundle"] = dlaunch
+    # in situ, as gate (a): the fused kernels against their plain versions on
+    # one 2-slot prefill chunk on int4 pages, every other input identical
+    def int4_chunk(fused):
+        pool = PagePool(cfg, 2, 64, page_size=ps, mode="int4",
+                        kv_calib=lart.kv_calib, device=dev)
+        prev = dispatch.set_fused_impl(fused)
+        try:
+            with torch.no_grad():
+                out, _ = T.prefill_chunk_paged(cfg, disk_engine.params, toks,
+                                               pool.kv, cal_table, zero2, zero2,
+                                               full32, disk_engine.ctx)
+        finally:
+            dispatch.set_fused_impl(prev)
+        return out[..., :cfg.vocab_size]
+    lk6 = int4_chunk("auto")
+    if not (torch.isfinite(lk6).all() and torch.equal(lk6, int4_chunk("ref"))):
+        raise AssertionError("bundle serve: fused kernels change the logits "
+                             "in situ")
+    print("bundle serve: streams and counters equal to the in-memory "
+          "artifact's; fused kernels bit-equal to their plain versions in "
+          f"situ (int4 pages)  [{card}]", flush=True)
+    report["bundle_serve"] = {"seconds": dsecs, "launches": dlaunch,
+                              "bundle_files": bundle_files, "meta": lart.meta,
+                              "tokens_out": drep["tokens_out"],
+                              "decode_steps": drep["decode_steps"],
+                              "prefill_steps": drep["prefill_steps"]}
+    del mem_engine, disk_engine, sart, lart, params
+    torch.cuda.empty_cache()
+    phases.done("write, load and serve a bundle")
+
+    # -- 7. the serving launcher, in-process -------------------------------------
+    launch_json = out_dir / "launch_serve.json"
+    reset_counts()
+    torch.cuda.synchronize()
+    rc = launch_serve.main(["--backend", "fused", "--quant", "muxq",
+                            "--kv-mode", "int4", "--spec-mode", "ngram",
+                            "--json-out", str(launch_json),
+                            "--device", str(dev)])
+    torch.cuda.synchronize()
+    llaunch = read_counts()
+    lrep = json.loads(launch_json.read_text())["report"]
+    if rc != 0 or lrep["tokens_out"] <= 0:
+        raise AssertionError(f"launcher: rc {rc}, {lrep['tokens_out']} tokens")
+    for key in ("rowwise_quantize", "muxq_gemm", "paged_attention[int4]"):
+        if llaunch[key] <= 0:
+            raise AssertionError(f"launcher never launched {key}: {llaunch}")
+    print(f"launcher: {lrep['tokens_out']} tokens, {lrep['decode_steps']} decode "
+          f"steps ({lrep['spec_verify_steps']} verify) on int4 pages; launches "
+          f"{llaunch}  [{card}]", flush=True)
+    report["launcher"] = {"launches": llaunch, "tokens_out": lrep["tokens_out"],
+                          "decode_steps": lrep["decode_steps"],
+                          "spec_verify_steps": lrep["spec_verify_steps"]}
+    phases.done("launcher")
+
+    # -- 8. end to end: qwen2-0.5b at full width, int4 pages + speculation ------
     qdh = qcfg.head_dim
     k0 = qcfg.n_heads * qdh                 # K columns of wqkv start here
     k_hot = [k0 + 5, k0 + qdh * (qkvh - 1) + (qdh // 2 + 5) % qdh]
@@ -1107,7 +1335,7 @@ def main() -> int:
         "streams": [[r.prompt, r.out_tokens] for r in qreqs]}
     phases.done("serve qwen2-0.5b")
 
-    # -- 6. result lines ---------------------------------------------------------
+    # -- 9. result lines ---------------------------------------------------------
     pa_src = ("src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:161")
     sources = {"rowwise_quantize": ("src/repro_torch/csrc/rowwise_quantize.cu",
@@ -1131,8 +1359,6 @@ def main() -> int:
                         "library_ms": t["library_ms"]})
     report["kernels"] = kernels
     report["main_runs"] = main_runs
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())

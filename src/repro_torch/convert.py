@@ -8,7 +8,8 @@ a leading ``[L, ...]`` axis (``transformer._stacked_layers``, for
 
 with one dict of tensors per layer (the reference's per-layer subtree,
 unstacked).  Prequantized ``{"q", "s"}`` weight leaves unstack the same
-way.
+way.  :func:`to_reference_layout` is the inverse: what an artifact bundle
+stores, so a bundle the port writes is the reference's format.
 """
 from __future__ import annotations
 
@@ -61,3 +62,29 @@ def as_port_params(cfg, params, device) -> dict:
     if isinstance(params.get("layers"), dict):
         return from_jax_params(cfg, params, device)
     return params_to(params, device)
+
+
+def _to_numpy(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def to_reference_layout(params: dict) -> dict:
+    """The port's params (tensors, a list of per-layer dicts, ``{"q", "s"}``
+    leaves included) -> the reference's tree: numpy leaves, every per-layer
+    leaf stacked on a leading [L, ...] axis.  A tree already stacked only
+    turns into numpy."""
+    out = {k: _map(v, _to_numpy) for k, v in params.items() if k != "layers"}
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        out["layers"] = _map(layers, _to_numpy)
+    else:
+        out["layers"] = _stack([_map(lp, _to_numpy) for lp in layers])
+    return out

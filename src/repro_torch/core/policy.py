@@ -12,7 +12,7 @@ import dataclasses
 import fnmatch
 from typing import List, Optional, Tuple, Union
 
-from repro_torch.core.muxq import QuantConfig
+from repro_torch.core.muxq import SMOOTH_METHODS, QuantConfig
 
 _GLOB_CHARS = set("*?[]")
 
@@ -50,6 +50,18 @@ class SitePolicy:
 
     def configs(self) -> List[QuantConfig]:
         return [self.default] + [c for _, c in self.rules]
+
+    # -- planning predicates (what calibration must produce) -------------------
+
+    def needs_static_masks(self) -> bool:
+        return any(c.outlier_mode == "static" and c.method != "fp"
+                   for c in self.configs())
+
+    def needs_smoothing(self) -> bool:
+        return any(c.method in SMOOTH_METHODS for c in self.configs())
+
+    def needs_calibration(self) -> bool:
+        return self.needs_static_masks() or self.needs_smoothing()
 
     def is_fp(self) -> bool:
         return all(c.method == "fp" for c in self.configs())

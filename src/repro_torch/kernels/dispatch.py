@@ -2,8 +2,9 @@
 kernel-ready per-site buffer format and the fused execution entry point.
 
 Counterpart of ``repro/kernels/dispatch.py``.  Backends: ``fused`` (the
-packed single-GEMM MUXQ path), ``fake`` (quantize-dequantize; not ported
-yet) and ``fp`` (passthrough).
+packed single-GEMM MUXQ path), ``fake`` (quantize-dequantize and the
+real-int8 reference forms, run by ``core/context.py``) and ``fp``
+(passthrough).
 
 Buffer layout (statics derive from shapes — ``bk = K_pad / nb``):
 

@@ -1,4 +1,5 @@
-"""Shared model substrate: config, norms, rotary embeddings, softcap.
+"""Shared model substrate: config, norms, rotary embeddings, softcap,
+cross-entropy.
 
 Counterpart of ``repro/models/common.py``.  ``ModelConfig`` is the
 reference's frozen dataclass with the fields of the families the port
@@ -131,3 +132,22 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross-entropy.  ``vocab_size`` is the real vocab: the
+    padded logit columns are left out of the normalizer."""
+    logits = logits.float()
+    pad = logits.shape[-1] - vocab_size
+    if pad > 0:
+        logits = torch.cat([logits[..., :vocab_size],
+                            torch.full((*logits.shape[:-1], pad), -1e9,
+                                       device=logits.device)], dim=-1)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

@@ -1,42 +1,87 @@
-"""``QuantArtifact``: everything quantized serving needs, in one object.
+"""Model quantization: calibrate -> plan -> prequantize -> pack, and the
+``QuantArtifact`` that carries the result.
 
-Counterpart of ``repro/quantize.py``.  :meth:`QuantArtifact.load` reads
-the reference's bundle format (v1..v3, ``docs/ARTIFACT_FORMAT.md``: one
-npz per group plus ``meta.json``), so the port serves bundles the JAX
-package wrote.  :func:`pack_kernel_buffers` packs a fused-backend policy's
-per-site kernel buffers from the port's own params and calibrated masks,
-mirroring the reference's ``_pack_kernel_buffers``, so the port can also
-build an artifact without JAX.  :func:`calibrate_model` is the
-reference's calibration pass (``_run_calibration``): a ``CollectCtx``
-over the eager dense ``forward``, with a ``KVCalibCollector`` installed
-as the KV observer, so one set of forwards yields the matmul-site stats
-and the int4 KV pages' ``kv_calib``.  ``quantize_model`` and ``save`` are
-a later slice.
+Counterpart of ``repro/quantize.py``.  :func:`quantize_model` turns (model
+config, params, calibration batches or precollected stats, policy) into
+one :class:`QuantArtifact`: the policy, the calibrated static outlier
+masks, the per-site activation abs-max, the folded smoothing divisors of
+smooth-method sites, the offline-packed ``{"q", "s"}`` weight tree, the
+kernel-ready buffers of fused-backend sites, the stacked ``[L, ...]``
+``scan_qparams`` the reference's scanned layer loop reads, and the int4 KV
+pages' ``kv_calib``.  :meth:`QuantArtifact.save` writes the reference's
+bundle format v3 (``docs/ARTIFACT_FORMAT.md``; the weight tree stacked as
+the reference stores it), and :meth:`QuantArtifact.load` reads v1..v3, so
+either package serves a bundle the other wrote.  :func:`calibrate_model`
+is the calibration pass (the reference's ``_run_calibration``); the
+smaller :func:`build_artifact` packs a fused policy's buffers from
+already-calibrated masks.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterable, Optional, Tuple
+import re
+from typing import Any, Dict, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.convert import as_port_params, from_jax_params, to_reference_layout
+from repro_torch.core import smoothquant as SQ
 from repro_torch.core.calibrate import calibrate
+from repro_torch.core.context import QuantCtx, _is_prequant
+from repro_torch.core.muxq import SMOOTH_METHODS, QuantConfig
 from repro_torch.core.outliers import CalibrationStats
 from repro_torch.core.policy import SitePolicy, as_policy
+from repro_torch.core.prequant import prequantize_params
 from repro_torch.kernels import dispatch
 
 _FORMAT_VERSION = 3
 _GROUPS = ("masks", "act_absmax", "smooth_factors", "scan_qparams",
            "kernel_buffers", "params", "kv_calib")
-_SMOOTH_METHODS = ("smoothquant", "muxq_smooth")
+
+PACK_TARGETS = ("both", "fused", "tree")
 
 # ctx site base name -> weight leaf inside one layer's params (dense family)
 SITE_WEIGHT_PATH = {
     "attn_qkv": ("attn", "wqkv"), "attn_out": ("attn", "wo"),
     "mlp_up": ("mlp", "wi"), "mlp_down": ("mlp", "wo"),
 }
+
+_SITE_RE = re.compile(r"^(layer)(\d+)/(.+)$")
+
+
+def split_site(site: str):
+    """'layer3/mlp_up' -> ('layer', 3, 'mlp_up'); bare names -> (None, None, site)."""
+    m = _SITE_RE.match(site)
+    if m is None:
+        return None, None, site
+    return m.group(1), int(m.group(2)), m.group(3)
+
+
+def _site_weight(params, site: str) -> Optional[torch.Tensor]:
+    """The 2-D [in_ch, out] weight an eager site of the port's params
+    consumes, or None when the site has no such leaf."""
+    kind, idx, base = split_site(site)
+    path = SITE_WEIGHT_PATH.get(base)
+    if kind != "layer" or path is None or idx >= len(params["layers"]):
+        return None
+    mod, leaf = path
+    w = params["layers"][idx].get(mod, {}).get(leaf)
+    return None if w is None or _is_prequant(w) else w
+
+
+def _flatten_nested(group: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """One level of dict nesting -> npz keys '{key}#{field}'; array values
+    pass through.  Inverse of :func:`_unflatten_nested`."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, val in group.items():
+        if isinstance(val, dict):
+            for field, arr in val.items():
+                flat[f"{key}#{field}"] = np.asarray(arr)
+        else:
+            flat[key] = np.asarray(val)
+    return flat
 
 
 def _unflatten_nested(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -53,12 +98,13 @@ def _unflatten_nested(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
 
 @dataclasses.dataclass
 class QuantArtifact:
-    """Policy, calibrated state and packed kernel buffers.
+    """Policy, calibrated state, packed weights and kernel buffers.
 
     ``kernel_buffers`` is {eager site: {field: array}} in the dispatch
-    format; ``params`` is the weight tree to serve with — the reference's
-    stacked layout when loaded from a bundle, the port's layout when built
-    by :func:`build_artifact` (``ServeEngine`` accepts either)."""
+    format; ``params`` is the weight tree to serve with (None for a
+    quantize-at-use artifact) — the reference's stacked layout when loaded
+    from a bundle, the port's per-layer layout when built here
+    (``ServeEngine`` and :meth:`save` take either)."""
     policy: SitePolicy
     masks: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     act_absmax: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
@@ -69,6 +115,35 @@ class QuantArtifact:
     params: Any = None
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
     kv_calib: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+
+    @property
+    def prequantized(self) -> bool:
+        return self.params is not None
+
+    def ctx(self, device="cuda") -> QuantCtx:
+        """A QuantCtx wired to this artifact."""
+        return QuantCtx(self, device=device)
+
+    def save(self, path, pack_target: str = "both") -> str:
+        """Write the bundle (format v3, atomically).  ``pack_target`` drops
+        the per-weight copy a deployment never reads (see
+        :func:`apply_pack_target`); ``meta.json`` records the choice."""
+        art = apply_pack_target(self, pack_target)
+        groups = {
+            "masks": art.masks,
+            "act_absmax": art.act_absmax,
+            "smooth_factors": art.smooth_factors,
+            "scan_qparams": _flatten_nested(art.scan_qparams),
+            "kernel_buffers": _flatten_nested(art.kernel_buffers),
+            "params": (ckpt.flatten(to_reference_layout(art.params))
+                       if art.prequantized else {}),
+            "kv_calib": art.kv_calib,
+        }
+        meta = {"format_version": _FORMAT_VERSION,
+                "policy": art.policy.to_json(),
+                "prequantized": art.prequantized,
+                **art.meta}
+        return str(ckpt.save_bundle(path, groups, meta))
 
     @classmethod
     def load(cls, path) -> "QuantArtifact":
@@ -87,9 +162,109 @@ class QuantArtifact:
                    params=params, meta=meta, kv_calib=groups["kv_calib"])
 
 
+# ---------------------------------------------------------------------------
+# Pack targets: drop the per-weight copy the deployment never reads
+# ---------------------------------------------------------------------------
+
+def _defused_policy(policy: SitePolicy) -> SitePolicy:
+    """Every fused-backend config rewritten to the fake backend (the 'tree'
+    target drops the kernel buffers, so fused routing must go too)."""
+    def defuse(c: QuantConfig) -> QuantConfig:
+        if c.method != "fp" and c.backend == "fused":
+            return c.replace(backend="fake")
+        return c
+    return SitePolicy(default=defuse(policy.default),
+                      rules=tuple((p, defuse(c)) for p, c in policy.rules))
+
+
+def apply_pack_target(artifact: QuantArtifact, pack_target: str) -> QuantArtifact:
+    """Drop the duplicate per-weight copy a single-backend deployment never
+    reads (a fused site is otherwise stored twice: its ``{"q", "s"}`` tree
+    leaf and its packed kernel buffer).
+
+      * ``"both"``  — keep both (the artifact serves either backend);
+      * ``"fused"`` — a weight leaf whose every layer is fused keeps only
+        the kernel buffers: its tree leaves shrink to inert all-ones-shape
+        stubs (stacked: [L, 1, 1]), so misrouting it to the fake backend
+        fails on shape, not silently on garbage;
+      * ``"tree"``  — drop the kernel buffers and the ``@fused`` scan
+        stacks, and rewrite the policy's fused backends to ``fake``.
+    """
+    if pack_target not in PACK_TARGETS:
+        raise ValueError(f"unknown pack_target {pack_target!r} "
+                         f"(expected one of {PACK_TARGETS})")
+    if pack_target == "both":
+        return artifact
+    if pack_target == "tree":
+        scan_qp = {k: v for k, v in artifact.scan_qparams.items()
+                   if not k.endswith("@fused")}
+        return dataclasses.replace(
+            artifact, policy=_defused_policy(artifact.policy),
+            kernel_buffers={}, scan_qparams=scan_qp,
+            meta={**artifact.meta, "pack_target": "tree", "n_fused_sites": 0})
+
+    meta = {**artifact.meta, "pack_target": "fused"}
+    params = artifact.params
+    if params is None or not artifact.kernel_buffers:
+        return dataclasses.replace(artifact, meta=meta)
+    if isinstance(params["layers"], dict):      # loaded from a bundle
+        params = from_jax_params(None, params, "cpu")
+    layers = [dict(lp) for lp in params["layers"]]
+    for base, (mod, key) in SITE_WEIGHT_PATH.items():
+        if not all(f"layer{i}/{base}" in artifact.kernel_buffers
+                   for i in range(len(layers))):
+            continue                    # partial fused coverage: keep the copy
+        if not all(_is_prequant(lp.get(mod, {}).get(key)) for lp in layers):
+            continue                    # not packed (fp site etc.)
+        for lp in layers:
+            leaf = lp[mod][key]
+            stub = {"q": torch.zeros((1,) * leaf["q"].ndim, dtype=torch.int8,
+                                     device=leaf["q"].device),
+                    "s": torch.ones((1,) * leaf["s"].ndim, dtype=torch.float32,
+                                    device=leaf["s"].device)}
+            lp[mod] = {**lp[mod], key: stub}
+    return dataclasses.replace(artifact, params={**params, "layers": layers},
+                               meta=meta)
+
+
+# ---------------------------------------------------------------------------
+# Calibration, packing and the quantize_model entry point
+# ---------------------------------------------------------------------------
+
+def _stack_qparams(cfg, masks: Dict[str, np.ndarray],
+                   factors: Dict[str, np.ndarray],
+                   buffers: Optional[Dict[str, dict]] = None) -> Dict[str, Any]:
+    """{bare site: [L, ch]} stacked state for the reference's scanned layer
+    loop (the port runs its layers eagerly and never reads it; the bundle
+    carries it so the reference serves a port-written bundle as its own).
+    Masks stack under the bare site, factors under '{site}@smooth', kernel
+    buffers field-wise under '{site}@fused' (layers whose packed widths
+    differ padded first to one K_pad with inert blocks).  Sites that miss a
+    layer are left out."""
+    out: Dict[str, Any] = {}
+    for source, suffix in ((masks, ""), (factors, "@smooth")):
+        bases = {split_site(s)[2] for s in source if split_site(s)[0] == "layer"}
+        for base in sorted(bases):
+            vals = [source.get(f"layer{i}/{base}") for i in range(cfg.n_layers)]
+            if any(v is None for v in vals):
+                continue
+            out[base + suffix] = np.stack([np.asarray(v) for v in vals])
+    buffers = buffers or {}
+    bases = {split_site(s)[2] for s in buffers if split_site(s)[0] == "layer"}
+    for base in sorted(bases):
+        vals = [buffers.get(f"layer{i}/{base}") for i in range(cfg.n_layers)]
+        if any(v is None for v in vals):
+            continue
+        k_pad = max(dispatch.buffer_k_pad(v) for v in vals)
+        vals = [dispatch.pad_buffer_to(v, k_pad) for v in vals]
+        out[base + "@fused"] = {f: np.stack([v[f] for v in vals])
+                                for f in dispatch.BUFFER_FIELDS}
+    return out
+
+
 def _fused_sites(cfg, policy: SitePolicy):
-    """(eager site, resolved cfg, weight path) for every dense site whose
-    policy resolves to the fused backend."""
+    """(eager site, resolved cfg, layer, weight path) for every dense site
+    whose policy resolves to the fused backend."""
     for i in range(cfg.n_layers):
         for base, path in SITE_WEIGHT_PATH.items():
             site = f"layer{i}/{base}"
@@ -98,26 +273,32 @@ def _fused_sites(cfg, policy: SitePolicy):
                 yield site, scfg, i, path
 
 
-def pack_kernel_buffers(cfg, params, policy, masks: Dict[str, np.ndarray]
+def pack_kernel_buffers(cfg, params, policy, masks: Dict[str, np.ndarray],
+                        factors: Optional[Dict[str, np.ndarray]] = None
                         ) -> Dict[str, Dict[str, np.ndarray]]:
     """Kernel-ready packed buffer per fused-backend site (dispatch format),
-    from the port's params (``params["layers"][i]["attn"]["wqkv"]`` ...).
-    muxq-family sites need a calibrated static mask: packing bakes the
-    channel permutation offline.  Smooth-method sites are not packed here
-    (their factors come with torch calibration, a later slice)."""
+    from the port's params.  muxq-family sites need a calibrated static
+    mask (packing bakes the channel permutation); smooth-method sites fold
+    their divisor into the weight first (``Q(s*W)``), as
+    ``prequantize_params`` does, and the runtime applies X/s."""
     policy = as_policy(policy)
     buffers: Dict[str, Dict[str, np.ndarray]] = {}
     for site, scfg, i, (mod, leaf) in _fused_sites(cfg, policy):
-        if scfg.method in _SMOOTH_METHODS:
-            raise NotImplementedError(
-                f"site {site!r}: packing {scfg.method!r} needs smoothing "
-                "factors, which the port does not calibrate yet")
         mask = masks.get(site)
-        if scfg.method == "muxq" and mask is None:
+        if scfg.method in ("muxq", "muxq_smooth") and mask is None:
             raise ValueError(
-                f"site {site!r}: fused 'muxq' needs a calibrated static "
-                "outlier mask (the channel permutation is baked at pack time)")
+                f"site {site!r}: fused {scfg.method!r} needs a calibrated "
+                "static outlier mask (the channel permutation is baked at "
+                "pack time)")
         w = params["layers"][i][mod][leaf]
+        if scfg.method in SMOOTH_METHODS:
+            factor = (factors or {}).get(site)
+            if factor is None:
+                raise ValueError(
+                    f"site {site!r}: fused {scfg.method!r} needs folded "
+                    "smooth factors — pass calibration data")
+            s = torch.as_tensor(np.array(factor, np.float32), device=w.device)
+            w = (w * s[:, None]).to(w.dtype)
         buffers[site] = dispatch.pack_site_buffer(w, mask, scfg)
     return buffers
 
@@ -145,12 +326,84 @@ def calibrate_model(cfg, params, batches: Iterable, device="cuda"
     return stats, kvq.build_kv_calib(collector)
 
 
+def quantize_model(cfg, params, calib: Union[None, CalibrationStats, Iterable],
+                   policy: Union[QuantConfig, SitePolicy], *,
+                   prequantize: bool = True, pack_target: str = "both",
+                   device="cuda") -> QuantArtifact:
+    """calibrate -> plan -> prequantize -> pack, in one call.
+
+    ``params``: the port's (or the reference's stacked) tree; it runs on
+    ``device``.  ``calib``: batches ({"tokens": [b, s]}) that
+    :func:`calibrate_model` runs through the dense ``forward`` (matmul
+    stats and the int4 KV pages' ``kv_calib``), a precollected
+    :class:`CalibrationStats` (no forwards, no ``kv_calib``), or None when
+    the policy needs no calibration.  ``prequantize=False`` skips weight
+    packing (the paper's fake-quant evaluation protocol).  ``pack_target``:
+    see :func:`apply_pack_target`."""
+    policy = as_policy(policy)
+    params = as_port_params(cfg, params, device)
+    stats: Optional[CalibrationStats] = None
+    kv_calib = None
+    if isinstance(calib, CalibrationStats):
+        stats = calib
+    elif calib is not None:
+        stats, kv_calib = calibrate_model(cfg, params, calib, device)
+    if stats is None and policy.needs_calibration():
+        raise ValueError("policy needs static masks / smoothing factors but "
+                         "no calibration data or stats were given")
+
+    masks: Dict[str, np.ndarray] = {}
+    absmax: Dict[str, np.ndarray] = {}
+    factors: Dict[str, np.ndarray] = {}
+    for site, st in (stats.sites.items() if stats else ()):
+        scfg = policy.resolve(site)
+        if scfg.method == "fp":
+            continue
+        absmax[site] = np.asarray(st.absmax, np.float32)
+        if scfg.outlier_mode == "static":
+            masks[site] = np.asarray(st.mask(scfg.outlier_threshold))
+        if scfg.method in SMOOTH_METHODS:
+            w2 = _site_weight(params, site)
+            if w2 is None:
+                if prequantize:
+                    raise ValueError(
+                        f"cannot fold smoothing for site {site!r}: no "
+                        "addressable weight leaf (use prequantize=False)")
+                continue
+            factors[site] = SQ.smoothing_factors(
+                torch.from_numpy(absmax[site]), w2,
+                scfg.smooth_alpha).cpu().numpy()
+
+    packed = None
+    buffers: Dict[str, Dict[str, np.ndarray]] = {}
+    if prequantize:
+        packed = prequantize_params(cfg, params, policy=policy,
+                                    smooth_factors=factors)
+        buffers = pack_kernel_buffers(cfg, params, policy, masks, factors)
+    art = QuantArtifact(
+        policy=policy, masks=masks, act_absmax=absmax, smooth_factors=factors,
+        scan_qparams=_stack_qparams(cfg, masks, factors, buffers),
+        kernel_buffers=buffers, params=packed,
+        meta={"n_sites": len(absmax), "n_fused_sites": len(buffers)},
+        kv_calib=kv_calib or {})
+    return apply_pack_target(art, pack_target)
+
+
+def save_artifact(artifact: QuantArtifact, path) -> str:
+    return artifact.save(path)
+
+
+def load_artifact(path) -> QuantArtifact:
+    return QuantArtifact.load(path)
+
+
 def build_artifact(cfg, params, policy, masks: Dict[str, np.ndarray], *,
                    kv_calib: Optional[Dict[str, np.ndarray]] = None
                    ) -> QuantArtifact:
-    """A servable artifact from the port's params: the policy, the masks
-    of its quantized sites, their packed kernel buffers and, for int4 KV
-    pages, the ``kv_calib`` section from :func:`calibrate_model`."""
+    """A servable artifact from the port's params and calibrated masks: the
+    policy, the masks of its quantized sites, their packed kernel buffers
+    and, for int4 KV pages, ``kv_calib``.  The raw params ride along as the
+    weights to serve with (fused sites never read them)."""
     policy = as_policy(policy)
     buffers = pack_kernel_buffers(cfg, params, policy, masks)
     kept = {s: np.asarray(m) for s, m in masks.items()

@@ -377,6 +377,9 @@ def test_port_imports_neither_jax_nor_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    port = {f.relative_to(REPO / "src" / "repro_torch").as_posix() for f in files[:-1]}
+    assert {"core/llm_int8.py", "core/smoothquant.py", "core/prequant.py",
+            "data/pipeline.py", "data/synthetic.py", "launch/serve.py"} <= port
     bad = []
     for f in files:
         for mod in _imported_modules(f):

@@ -19,6 +19,7 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.core.context import CollectCtx as JCollectCtx
+from repro.core.context import QuantCtx as JQuantCtx
 from repro.core.context import as_ctx as jas_ctx
 from repro.core.muxq import QuantConfig as JQuantConfig
 from repro.core.policy import SitePolicy as JSitePolicy
@@ -296,10 +297,23 @@ def test_pool_alloc_share_cow_release(model):
 
 
 def test_quant_ctx_refuses_unported_backends(model):
-    ctx = QuantCtx(SitePolicy.uniform(QuantConfig(**{**FUSED, "backend": "fake"})),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="fake"):
-        ctx("layer0/attn_qkv", torch.zeros(1, 64), torch.zeros(64, 8))
+    """The fake backend (ported in the fifth slice) runs the site as the
+    reference's QuantCtx does (f32 output within 1e-5 of its scale, on the
+    bundle's static masks); a fused site without packed buffers still
+    refuses."""
+    art = QuantArtifact.load(model["path"])
+    spec = {**FUSED, "backend": "fake"}
+    ctx = QuantCtx(SitePolicy.uniform(QuantConfig(**spec)), device="cpu",
+                   masks=art.masks)
+    jctx = JQuantCtx(JSitePolicy.uniform(JQuantConfig(**spec)), masks=art.masks)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 64)).astype(np.float32)
+    x[:, HOT] *= 30.0
+    w = rng.standard_normal((64, 8)).astype(np.float32)
+    y = ctx("layer0/attn_qkv", torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    yj = np.asarray(jctx("layer0/attn_qkv", jnp.asarray(x), jnp.asarray(w)))
+    np.testing.assert_allclose(y, yj, rtol=0, atol=1e-5 * np.abs(yj).max())
+    assert ctx.backend_log == {"layer0/attn_qkv": "fake"}
     fused = QuantCtx(SitePolicy.uniform(QuantConfig(**FUSED)), device="cpu")
     with pytest.raises(RuntimeError, match="kernel buffers"):
         fused("layer0/attn_qkv", torch.zeros(1, 64), torch.zeros(64, 8))
