@@ -25,14 +25,27 @@ its seconds):
    its plain version and a PyTorch yardstick beside the kernel's lower
    bound on this card, at the shapes the serving runs give it: decode,
    verify and prefill chunks on the page modes they use.
-4. Serve gpt2-small at full width (12 layers, random weights from a seed,
+4. The reference's other dense decoders at full width: at every matmul
+   site (K, N) of gemma2-9b, qwen2.5-14b, qwen1.5-110b and internvl2-2b
+   (K up to 49152, N up to 98304) and M 4 and 128, ``rowwise_quantize``
+   and ``muxq_gemm`` bit for bit against their plain versions (the GEMM
+   also against the paper's two-GEMM oracle at one site), on k-major
+   buffers built on the card, and timed beside ``torch._int_mm``;
+   ``paged_attention`` at dh 224 / g 2 (gemma2, window 4096 and softcap
+   50, rows at positions 4100-4700), dh 128 / g 5 and g 8 on bf16, int8
+   and int4 pages at sq 1/4/32, and timed at five serving shapes.
+5. Serve gpt2-small at full width (12 layers, random weights from a seed,
    int8 pages): calibrate, pack the fused MUXQ kernel buffers, serve 4
    requests x 16 tokens, time ``muxq_gemm`` at each distinct site shape
    of the served artifact (its own weights; decode and prefill M, beside
    ``torch._int_mm``) and ``rowwise_quantize`` at the widest K, profile a
    repeat run, and hold the kernel path's logits against the plain
    path's.
-5. The paper's grid on the ``fake`` backend, gpt2-small at full width on
+6. The same serve on a fresh engine with the flight recorder and the
+   quality observer on (the observer installed on the activation seam):
+   the stream equal to phase 5's, no lifecycle or Chrome-trace error,
+   the trace written under ``build/``, only KV-pool samples observed.
+7. The paper's grid on the ``fake`` backend, gpt2-small at full width on
    the same weights: calibrate on two ``TokenPipeline`` batches, then for
    fp, naive, MUXQ (paper and fused forms), LLM.int8(), SmoothQuant and
    MUXQ + SmoothQuant at per-tensor activations and weights, and naive
@@ -42,15 +55,15 @@ its seconds):
    real-int8 ``muxq_matmul_fused`` (f32 dot-product error bound), and
    ``muxq_matmul_fused`` against ``dispatch.fused_matmul`` through the
    kernels (equal codes and scales, FUSED_RTOL).
-6. Write a bundle and serve it: ``quantize_model`` with MUXQ + SmoothQuant
+8. Write a bundle and serve it: ``quantize_model`` with MUXQ + SmoothQuant
    on the fused backend (pack target ``fused``, int4 KV calibration),
    ``save`` (under ``build/``, removed once loaded), ``QuantArtifact.load``,
    and serve 4 requests x 16 tokens on int4 pages from the loaded bundle
    and from the in-memory artifact: identical streams and counters, and
    the fused kernels bit-equal to their plain versions in place.
-7. Run the serving launcher in-process (``--backend fused --quant muxq
+9. Run the serving launcher in-process (``--backend fused --quant muxq
    --kv-mode int4 --spec-mode ngram --json-out ...``) on the reduced gpt2.
-8. Serve qwen2-0.5b at full width (24 layers, d 896, 14/2 heads, d_ff
+10. Serve qwen2-0.5b at full width (24 layers, d 896, 14/2 heads, d_ff
    4864, vocab 151936; random weights with planted activation and KV
    outliers): calibrate through the port's dense ``forward`` (matmul
    sites and KV channels) and build the artifact with ``kv_calib``; hold
@@ -65,13 +78,28 @@ its seconds):
    served artifact's GEMM shapes at decode, verify (4 slots x 5 rows) and
    prefill M, and the quantize at the widest K, as for gpt2 -- and the
    same requests on f32 pages without speculation for comparison.
-9. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
+11. Serve qwen2.5-14b at full width (d 5120, 40/8 heads, dh 128, d_ff
+   13824, vocab 152064, untied head), depth cut to 4 of 48 layers: seeded
+   weights with planted outliers, calibrated through the dense forward,
+   fused MUXQ, 4 requests x 16 tokens on int8 pages.  In place: (a) the
+   fused kernels bit-equal to their plain versions (prefill chunk and
+   decode step logits); at fp weights the paged kernel against its plain
+   version, (b) on f32 pages within LOGIT_RTOL of the logit scale, (b')
+   on the served pages within NUDGE_FACTOR x the spread that 1-ulp
+   nudges of the plain version's attention make; (c) the logits through
+   ``lm_head`` differ from those through the embedding.
+12. Serve gemma2-9b at full width (d 3584, 16/8 heads, dh 224, d_ff 14336,
+   vocab 256000, window 4096, softcaps 50/30, sandwich norms, scaled
+   embedding), 2 of 42 layers (one local/global period): the same flow on
+   int4 pages with n-gram speculation (k = 4), gates (a), (b) and (b') on
+   a verify block.
+13. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
 ``launches`` in the JSON line counts the launches of the full-width
-serving runs of phases 4, 6 and 8 (each run starts from zero counts); the
-launcher's reduced-width run of phase 7 keeps its own counts under
-``launcher`` in ``chip_smoke.json``.  ``flash_attention`` is on no
+serving runs of phases 5, 8, 10, 11 and 12 (each run starts from zero
+counts); the traced serve of phase 6 and the launcher's reduced-width run
+of phase 9 keep their own counts in ``chip_smoke.json``.  ``flash_attention`` is on no
 serving path and has 0.  It imports nothing of JAX or of the
 reference package.  Details of every measurement also go to
 ``chip_smoke.json`` in the output directory at the root of the checkout
@@ -79,6 +107,7 @@ reference package.  Details of every measurement also go to
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import shutil
@@ -113,7 +142,8 @@ FLASH_F32_ATOL = 2e-4   # f32 flash attention over 2048 keys (sum order); bf16
                         # flash: the plain version is f32 math rounded to bf16,
                         # so the same atol plus one bf16 ulp
 SERVE_BRANCH_SCALE = 2e-3   # qwen2's served weights: attention and MLP
-                            # output projections scaled down (phase 5)
+                            # output projections scaled down (phase 10);
+                            # gemma2's sandwich post-norm gains (phase 12)
 VERIFY_RTOL = 1e-3  # in-situ verify logits on int4 pages with fp weights,
                     # paged kernel vs plain, relative to max |logits|: the
                     # attention sums' order differs, and an ulp may move an
@@ -125,6 +155,20 @@ FUSED_RTOL = 4 * 2.0 ** -24    # muxq_matmul_fused vs the fused kernels at
 NUDGE_FACTOR = 2.0  # in-situ verify logits under fused MUXQ, kernel vs plain:
                     # at most this x the plain-vs-plain spread that 1-ulp
                     # nudges of every attention output make
+LOGIT_RTOL = 1e-3   # in-situ logits of the wide serves, paged kernel vs
+                    # plain at fp weights on f32 pages, relative to max
+                    # |logits| (only the attention sums' order differs)
+
+# the reference's other dense decoders (phase 4: every site and attention
+# shape at full width; phases 11-12 serve two of them at full width, depth
+# cut to fit one card and the time limit)
+WIDE_ARCHS = ("gemma2-9b", "qwen2.5-14b", "qwen1.5-110b", "internvl2-2b")
+WIDE_MS = (4, 128)          # decode and prefill (4 slots x a 32-token chunk)
+TWO_MATMUL_SITE = ("qwen2.5-14b", "mlp_down", 128)   # the second GEMM oracle
+WINDOW_SPAN = 600           # gemma2's paged rows sit up to this far past its
+                            # window (positions 4100-4700 at window 4096)
+Q14_LAYERS = 4              # qwen2.5-14b served at 4 of its 48 layers
+G9_LAYERS = 2               # gemma2-9b at 2 of 42: one local/global period
 
 
 def smi_line() -> str:
@@ -252,9 +296,13 @@ def main() -> int:
     from repro_torch.kernels import muxq_gemm as G
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import quantize as RQ
+    from repro_torch.kernels import ref as kref
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import transformer as T
     from repro_torch.models.common import cross_entropy
+    from repro_torch.obs.quality import QualityObserver
+    from repro_torch.obs.trace import (TraceRecorder, chrome_errors,
+                                       lifecycle_errors)
     from repro_torch.quantize import (QuantArtifact, build_artifact,
                                       calibrate_model, quantize_model)
     from repro_torch.serve import kvq
@@ -333,8 +381,9 @@ def main() -> int:
         else:
             kd, vd = kp, vp
         kd, vd = (x.to(q.dtype).float() for x in (kd, vd))
-        return PA.paged_attention_plain(q.float(), kd, vd, table,
-                                        pos).to(q.dtype)
+        return PA.paged_attention_plain(q.float(), kd, vd, table, pos,
+                                        window=kw.get("window"),
+                                        softcap=kw.get("softcap")).to(q.dtype)
 
     def held_paged(name, args, kw, **tags):
         """The paged kernel against its plain version (and, for bf16 q, its
@@ -742,6 +791,281 @@ def main() -> int:
               f"({row['bound_by']})  [{card}]", flush=True)
     phases.done("timings")
 
+    # -- 4. the reference's other dense decoders: kernels at their shapes ------
+    # every matmul site (K_pad, N) of gemma2-9b, qwen2.5-14b, qwen1.5-110b
+    # and internvl2-2b at full width, and their attention shapes (dh 224 at
+    # g 2 with gemma2's window and softcap, dh 128 at g 5 and g 8, dh 128 at
+    # g 2), each kernel against its plain version and timed
+    wide = {a: get_config(a) for a in WIDE_ARCHS}
+
+    def device_site(k, n, seed):
+        """A site's served buffers built on the card: the channel map that
+        ``ops.prepare_weights`` gives 8 outlier channels at e = 2 (one
+        512-wide x4 K-block; the map does not depend on the weight's
+        values), a random k-major int8 W^T [n, K_pad] and weight scales."""
+        g_ = torch.Generator().manual_seed(seed)
+        mask = np.zeros(k, bool)
+        mask[torch.randperm(k, generator=g_)[:8].numpy()] = True
+        meta = ops.prepare_weights(np.zeros((k, 1), np.float32), mask, 2,
+                                   bk=512)
+        k_pad = meta.gather_idx.shape[0]
+        gd = torch.Generator(device=dev).manual_seed(seed)
+        wt = torch.randint(-127, 128, (n, k_pad), generator=gd, device=dev,
+                           dtype=torch.int8)
+        sw = torch.rand(1, n, generator=gd, device=dev) * 1e-3 + 1e-4
+        return mask, ops.MuxqWeights(
+            w_int=wt.T, sw=sw, block_scale=meta.block_scale.to(dev),
+            gather_idx=meta.gather_idx.to(dev), in_scale=meta.in_scale.to(dev),
+            bk=meta.bk, k_orig=k)
+
+    def site_shapes(c):
+        qkv = (c.n_heads + 2 * c.n_kv_heads) * c.head_dim
+        up = 2 * c.d_ff if c.mlp_type == "swiglu" else c.d_ff
+        return {"attn_qkv": (c.d_model, qkv),
+                "attn_out": (c.n_heads * c.head_dim, c.d_model),
+                "mlp_up": (c.d_model, up), "mlp_down": (c.d_ff, c.d_model)}
+
+    n_sites = 0
+    for arch, c in wide.items():
+        for base, (k, n) in site_shapes(c).items():
+            mask, mw = device_site(k, n, n_sites)
+            n_sites += 1
+            k_pad = mw.w_int.shape[0]
+            for m in WIDE_MS:
+                x = torch.randn(m, k, generator=gen).to(dev)
+                x[:, torch.from_numpy(mask)] *= 40.0
+                qk, sk = RQ.rowwise_quantize(x, 8, gather_idx=mw.gather_idx,
+                                             in_scale=mw.in_scale)
+                qp, sp = RQ.rowwise_quantize_plain(x, 8, mw.gather_idx,
+                                                   mw.in_scale)
+                yk = G.muxq_gemm(qk, mw.w_int, mw.block_scale, sk, mw.sw,
+                                 bk=mw.bk)
+                yp = G.muxq_gemm_plain(qk, mw.w_int, mw.block_scale, sk,
+                                       mw.sw, mw.bk)
+                torch.cuda.synchronize()
+                if not (torch.equal(qk, qp) and torch.equal(sk, sp)):
+                    raise AssertionError(f"rowwise_quantize {arch} {base} "
+                                         f"m={m}: codes or scales differ")
+                if not torch.equal(yk, yp):
+                    raise AssertionError(
+                        f"muxq_gemm {arch} {base} m={m} K_pad={k_pad} N={n}: "
+                        f"not bit-equal (max abs err "
+                        f"{float((yk - yp).abs().max())})")
+                record("rowwise_quantize", site=f"{arch} {base}", m=m, k=k,
+                       k_pad=k_pad, max_abs_err=0.0)
+                record("muxq_gemm", site=f"{arch} {base}", m=m, k_pad=k_pad,
+                       n=n, max_abs_err=0.0)
+                if (arch, base, m) == TWO_MATMUL_SITE:
+                    # the second oracle: the paper's literal two-GEMM form
+                    y2 = kref.muxq_gemm_two_matmul_ref(
+                        qk, mw.w_int, mw.block_scale, sk, mw.sw, mw.bk)
+                    torch.cuda.synchronize()
+                    if not torch.equal(yk, y2):
+                        raise AssertionError(f"muxq_gemm {arch} {base} m={m}: "
+                                             "not bit-equal to the two-GEMM "
+                                             "oracle")
+                    record("muxq_gemm", vs="two-GEMM oracle",
+                           site=f"{arch} {base}", m=m, k_pad=k_pad, n=n,
+                           max_abs_err=0.0)
+                xp_ = padded_rows(qk)       # padded once, outside the timed call
+
+                def gemm_fn(qk=qk, sk=sk, mw=mw):
+                    return G.muxq_gemm(qk, mw.w_int, mw.block_scale, sk,
+                                       mw.sw, bk=mw.bk)
+
+                def rq_fn(x=x, mw=mw):
+                    return RQ.rowwise_quantize(x, 8, gather_idx=mw.gather_idx,
+                                               in_scale=mw.in_scale)
+                row = {"kernel": "muxq_gemm", "model": arch, "site": base,
+                       "m": m, "k_pad": k_pad, "n": n}
+                row["ms"], row["spread_ms"] = time_ms(torch, gemm_fn, flush)
+                row["warm_ms"], _ = time_ms(torch, gemm_fn, None)
+                row["plain_ms"] = time_ms(torch, lambda: G.muxq_gemm_plain(
+                    qk, mw.w_int, mw.block_scale, sk, mw.sw, mw.bk), flush)[0]
+                row["int_mm_ms"] = maybe_time(
+                    torch, lambda: torch._int_mm(xp_, mw.w_int), flush)
+                row["bound_ms"], row["bound_by"] = bound(
+                    m * k_pad + k_pad * n + 4 * (k_pad // mw.bk + m + n)
+                    + 4 * m * n, 2 * m * n * k_pad, INT8_OPS_S)
+                qrow = {"kernel": "rowwise_quantize", "model": arch,
+                        "site": base, "m": m, "k_in": k, "k_pad": k_pad}
+                qrow["ms"], qrow["spread_ms"] = time_ms(torch, rq_fn, flush)
+                qrow["plain_ms"] = time_ms(torch, lambda: RQ.rowwise_quantize_plain(
+                    x, 8, mw.gather_idx, mw.in_scale), flush)[0]
+                qrow["bound_ms"], qrow["bound_by"] = bound(
+                    m * k * 4 + k_pad * 8 + m * k_pad + m * 4, 4 * m * k_pad,
+                    F32_FLOPS_S)
+                report["timings"] += [row, qrow]
+                print(f"wide {arch} {base} M={m} K={k} K_pad={k_pad} N={n}: "
+                      f"codes and outputs bit-equal; muxq_gemm {row['ms']:.4f} "
+                      f"ms (spread {row['spread_ms'][0]:.4f}-"
+                      f"{row['spread_ms'][1]:.4f}; warm {row['warm_ms']:.4f}; "
+                      f"plain {row['plain_ms']:.4f}), torch._int_mm "
+                      f"{row['int_mm_ms']} ms (M padded to "
+                      f"{max(m, INT_MM_ROWS)}), bound {row['bound_ms']:.5f} "
+                      f"({row['bound_by']}); rowwise_quantize "
+                      f"{qrow['ms']:.4f} ms (plain {qrow['plain_ms']:.4f}), "
+                      f"bound {qrow['bound_ms']:.6f} ({qrow['bound_by']})  "
+                      f"[{card}]", flush=True)
+            del mw
+    torch.cuda.empty_cache()
+    print(f"kernel check: rowwise_quantize and muxq_gemm bit-exact at "
+          f"{n_sites} sites of {len(wide)} configs x M in {WIDE_MS}; the "
+          f"two-GEMM oracle at {TWO_MATMUL_SITE}", flush=True)
+
+    def wide_paged_case(c, mode, sq, pos_list, seed, qdt=torch.float32):
+        """Pages for one slot per entry of ``pos_list`` (full tables up to
+        the slot's last row), at config ``c``'s attention shape; gemma2's
+        local layers pass its window and softcap."""
+        dh_, kvh_, heads_ = c.head_dim, c.n_kv_heads, c.n_heads
+        g2 = torch.Generator().manual_seed(seed)
+        b_ = len(pos_list)
+        n_tab_ = (max(pos_list) + sq - 1) // ps + 1
+        n_pages_ = b_ * n_tab_ + 1
+        q = torch.randn(b_, sq, heads_, dh_, generator=g2).to(dev, qdt)
+        k = torch.randn(n_pages_, ps, kvh_, dh_, generator=g2).to(dev)
+        v = torch.randn(n_pages_, ps, kvh_, dh_, generator=g2).to(dev)
+        table = torch.arange(1, n_pages_, dtype=torch.int32,
+                             device=dev).reshape(b_, n_tab_)
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        kw = {}
+        if c.attn_softcap is not None:
+            kw = {"window": c.window_size, "softcap": c.attn_softcap}
+        if mode == "int8":
+            parts = quantize_kv(k, v)
+            k, v = parts["k"], parts["v"]
+            kw.update(k_scale=parts["k_scale"], v_scale=parts["v_scale"])
+        elif mode == "int4":
+            hot_k, hot_v = 5 % dh_, (dh_ // 2 + 5) % dh_
+            mask = np.zeros((kvh_, dh_), bool)
+            mask[:, [hot_k, hot_v]] = True
+            redist = torch.from_numpy(kvq.redist_from_mask(mask)).to(dev)
+            k[..., hot_k] *= 8.0
+            v[..., hot_v] *= 8.0
+            parts = kvq.Int4KVQuantizer(redist, redist).quantize(k, v)
+            k, v = parts["k"], parts["v"]
+            kw.update(k_scale=parts["k_scale"], v_scale=parts["v_scale"],
+                      k_redist=redist, v_redist=redist)
+        else:
+            k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        return (q, k, v, table, pos), kw
+
+    def wide_positions(c, sq):
+        """gemma2: rows past its window (4100-4700 at window 4096), so the
+        window drops each slot's first pages; the others: a ragged batch
+        up to 700 positions."""
+        if c.attn_softcap is not None:
+            w = c.window_size
+            return [w + 4, w + WINDOW_SPAN // 2, w + WINDOW_SPAN - sq,
+                    w + WINDOW_SPAN // 4]
+        return [700, 431, 64, 0]
+
+    n_paged = 0
+    for arch in ("gemma2-9b", "qwen2.5-14b", "qwen1.5-110b"):
+        c = wide[arch]
+        for mode in ("fp", "int8", "int4"):
+            for sq in (1, 4, 32):
+                args, kw = wide_paged_case(c, mode, sq, wide_positions(c, sq),
+                                           1000 + 10 * sq + n_paged)
+                held_paged(f"paged_attention[{mode}]", args, kw, sq=sq,
+                           g=c.n_heads // c.n_kv_heads, dh=c.head_dim,
+                           model=arch, window=kw.get("window"))
+                n_paged += 1
+        # bf16 queries, once per shape, against the f32 twin as well
+        args, kw = wide_paged_case(c, "int4", 4, wide_positions(c, 4),
+                                   2000 + n_paged, qdt=torch.bfloat16)
+        held_paged("paged_attention[int4]", args, kw, sq=4,
+                   g=c.n_heads // c.n_kv_heads, dh=c.head_dim, model=arch,
+                   q="torch.bfloat16", window=kw.get("window"))
+        n_paged += 1
+    for chk in report["checks"]:
+        if chk["kernel"].startswith("paged") and "model" in chk:
+            print(f"  {chk['kernel']} {chk['model']} dh {chk['dh']} g "
+                  f"{chk['g']} sq {chk['sq']} window {chk['window']} "
+                  f"{chk.get('q', 'f32')} vs {chk['vs']}: max abs err "
+                  f"{chk['max_abs_err']:.3g}, worst element at "
+                  f"{chk['max_ratio']:.3f} of its limit")
+    print(f"kernel check: paged_attention at dh 224 g 2 (window "
+          f"{wide['gemma2-9b'].window_size} crossed, softcap "
+          f"{wide['gemma2-9b'].attn_softcap}), dh 128 g 5 and g 8, on bf16, "
+          f"int8 and int4 pages, sq 1/4/32: {n_paged} cases within "
+          "tolerance", flush=True)
+
+    def wide_paged_timing(arch, mode, sq, pos_list, label):
+        """The paged kernel at a wide shape, beside its plain version and
+        SDPA on the gathered, dequantized K/V (none where a softcap makes
+        SDPA another function); bound from the pages the rows' windows
+        read and the (query, key) pairs they allow."""
+        c = wide[arch]
+        dh_, kvh_, heads_ = c.head_dim, c.n_kv_heads, c.n_heads
+        args, kw = wide_paged_case(c, mode, sq, pos_list, 7 + sq)
+        q, kp, vp, table, pos = args
+        w = kw.get("window", 1 << 30)
+        pairs = sum(min(p + i + 1, w) for p in pos_list for i in range(sq))
+        n_read = sum((p + sq - 1) // ps - max(0, p - w + 1) // ps + 1
+                     for p in pos_list)
+        nbytes = (n_read * ps * kvh_ * page_cost[mode](kp.element_size())
+                  + 2 * q.numel() * 4 + table.numel() * 4 + 16
+                  + (2 * kvh_ * dh_ * 4 if mode == "int4" else 0))
+        row = {"kernel": f"paged_attention[{mode}]", "model": arch,
+               "shape": f"{label}: b={len(pos_list)} sq={sq} h={heads_} "
+                        f"kvh={kvh_} dh={dh_} {mode} pages, {n_read * ps} "
+                        f"key positions read",
+               "plain_ms": time_ms(torch, lambda: PA.paged_attention_plain(
+                   *args, **kw), flush)[0], "library_ms": None}
+        if "softcap" not in kw:
+            if mode == "int8":
+                kd, vd = kp.float() * kw["k_scale"], vp.float() * kw["v_scale"]
+            else:
+                qz = kvq.Int4KVQuantizer(kw["k_redist"], kw["v_redist"])
+                kd, vd = qz.dequantize({"k": kp, "v": vp,
+                                        "k_scale": kw["k_scale"],
+                                        "v_scale": kw["v_scale"]},
+                                       torch.float32)
+            b_ = len(pos_list)
+            kd = kd[table.long()].reshape(b_, -1, kvh_, dh_).transpose(1, 2)
+            vd = vd[table.long()].reshape(b_, -1, kvh_, dh_).transpose(1, 2)
+            kd = kd.repeat_interleave(heads_ // kvh_, dim=1).contiguous()
+            vd = vd.repeat_interleave(heads_ // kvh_, dim=1).contiguous()
+            kpos = torch.arange(kd.shape[2], device=dev)
+            qpos = pos[:, None] + torch.arange(sq, device=dev)[None]
+            allow = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
+            qs = q.transpose(1, 2)
+            row["library_ms"] = time_ms(torch, lambda: sdpa(
+                qs, kd, vd, attn_mask=allow), flush)[0]
+        fn = lambda: PA.paged_attention_decode(*args, **kw)
+        row["ms"], row["spread_ms"] = time_ms(torch, fn, flush)
+        row["warm_ms"], _ = time_ms(torch, fn, None)
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 4 * dh_ * heads_ * pairs, F32_FLOPS_S)
+        report["timings"].append(row)
+        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+        print(f"time {row['kernel']} [{row['shape']}]: kernel {row['ms']:.4f} "
+              f"ms (spread {row['spread_ms'][0]:.4f}-{row['spread_ms'][1]:.4f}"
+              f"; warm {row['warm_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+              f"library {lib} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']})  [{card}]", flush=True)
+
+    g9w = wide["gemma2-9b"].window_size
+    wide_paged_timing("qwen2.5-14b", "int8", 1, [127, 100, 64, 40],
+                      "qwen2.5-14b decode")
+    wide_paged_timing("qwen2.5-14b", "int8", 32, [96, 64, 32, 0],
+                      "qwen2.5-14b prefill chunk")
+    wide_paged_timing("qwen1.5-110b", "int8", 1, [127, 100, 64, 40],
+                      "qwen1.5-110b decode")
+    span = [g9w + WINDOW_SPAN, g9w + WINDOW_SPAN // 2, g9w + WINDOW_SPAN // 4,
+            g9w + 4]
+    wide_paged_timing("gemma2-9b", "int4", 1, [p_ - g9w for p_ in span],
+                      "gemma2-9b decode inside the window")
+    wide_paged_timing("gemma2-9b", "int4", 1, span,
+                      "gemma2-9b decode past the window")
+    wide_paged_timing("gemma2-9b", "int4", 4, [p_ - 3 for p_ in span],
+                      "gemma2-9b verify past the window")
+    report["wide_shapes"] = {"archs": {a: dataclasses.asdict(c)
+                                       for a, c in wide.items()},
+                             "sites": n_sites, "paged_cases": n_paged}
+    phases.done("kernels at the other dense configs' shapes")
+
     policy = SitePolicy.uniform(QuantConfig(
         method="muxq", outlier_mode="static", act_granularity="per_token",
         backend="fused", weight_granularity="per_channel"))
@@ -782,7 +1106,7 @@ def main() -> int:
 
     main_runs = {}
 
-    # -- 4. end to end: gpt2-small at full width --------------------------------
+    # -- 5. end to end: gpt2-small at full width --------------------------------
     params = T.init_params(cfg, seed=0, device=dev)
     hot = torch.randperm(d, generator=torch.Generator().manual_seed(1))[:8].to(dev)
     for lp in params["layers"]:           # seeded outlier channels: a random
@@ -821,7 +1145,8 @@ def main() -> int:
                "one int8 GEMM",
                "Chunked prefill interleaves with the pooled decode so that "
                "long prompts never stall the live slots of the pool."]
-    _, rep, launches, serve_s = serve(engine, prompts, 16, "gpt2-small int8")
+    greqs, rep, launches, serve_s = serve(engine, prompts, 16,
+                                          "gpt2-small int8")
     for key in ("rowwise_quantize", "muxq_gemm", "paged_attention[int8]"):
         if launches[key] <= 0:
             raise AssertionError(f"gpt2 serve never launched {key}: {launches}")
@@ -924,11 +1249,59 @@ def main() -> int:
           f"{err_c:.3e}, argmax agreement {agree:.3f}", flush=True)
     if err_b > 1e-3 * scale_b:
         raise AssertionError("(b) paged kernel logits disagree with the plain path")
-    del engine, art, cal_pool
-    torch.cuda.empty_cache()
     phases.done("serve gpt2-small")
 
-    # -- 5. the paper's grid on the fake backend, gpt2-small at full width ------
+    # -- 6. observability: the same serve with the flight recorder and the
+    # quality observers on -----------------------------------------------------
+    # a fresh engine on the same artifact, the observer installed on the
+    # activation seam as the launcher's --obs installs it: the stream must
+    # equal the untraced serve's, the recorded lifecycle and the exported
+    # Chrome trace must be well formed, and no activation is observed inside
+    # the serve steps (only the KV pool's samples)
+    recorder, quality = TraceRecorder(), QualityObserver()
+    prev_obs = dispatch.set_quality_observer(quality)
+    try:
+        tengine = ServeEngine(cfg, art, max_batch=4, s_max=256,
+                              prefill_chunk=32, kv_mode="int8",
+                              recorder=recorder, quality=quality, device=dev)
+        treqs, trep, tlaunch, tsecs = serve(tengine, prompts, 16,
+                                            "gpt2-small int8, traced and "
+                                            "observed")
+    finally:
+        dispatch.set_quality_observer(prev_obs)
+    if [r.out_tokens for r in treqs] != [r.out_tokens for r in greqs]:
+        raise AssertionError("the traced serve's stream differs from the "
+                             "untraced serve's")
+    life = lifecycle_errors(recorder.events, decode_steps=trep["decode_steps"])
+    trace_path = recorder.export_chrome(ROOT / "build" / "chip_smoke_trace.json")
+    chrome = chrome_errors(trace_path)
+    snap = quality.snapshot()
+    if life or chrome:
+        raise AssertionError(f"trace errors: lifecycle {life}, chrome {chrome}")
+    if set(snap["sites"]) != {"kv/k", "kv/v"} or snap["pool_samples"] <= 0:
+        raise AssertionError(f"quality snapshot: sites {sorted(snap['sites'])}"
+                             f", {snap['pool_samples']} pool samples (the "
+                             "serve steps must observe no activation)")
+    n_compile = sum(e["name"] == "COMPILE" for e in recorder.events)
+    print(f"observability: stream equal to the untraced serve's; "
+          f"{len(recorder.events)} events ({n_compile} COMPILE, "
+          f"{recorder.dropped} dropped), lifecycle and chrome errors none; "
+          f"trace {trace_path.relative_to(ROOT)} "
+          f"{trace_path.stat().st_size} bytes; quality snapshot: "
+          f"{len(snap['sites'])} sites, {snap['pool_samples']} pool samples, "
+          f"kv/k clip rate {snap['sites']['kv/k']['clip_rate']:.4f}; serve "
+          f"{tsecs:.3f} s (untraced {serve_s:.3f} s, single host-clock "
+          f"runs)  [{card}]", flush=True)
+    report["observability"] = {
+        "seconds": tsecs, "untraced_seconds": serve_s,
+        "events": len(recorder.events), "compile_events": n_compile,
+        "trace_bytes": trace_path.stat().st_size, "quality": snap,
+        "launches": tlaunch}
+    del engine, tengine, art, cal_pool
+    torch.cuda.empty_cache()
+    phases.done("observability (gpt2-small traced)")
+
+    # -- 7. the paper's grid on the fake backend, gpt2-small at full width ------
     # the same weights; mean cross-entropy on the synthetic corpus, and the
     # logits' relative distance from the fp logits, for every method of the
     # paper's Table 1 (static calibrated masks, exp_factor 2)
@@ -1030,7 +1403,7 @@ def main() -> int:
                             "kernels_vs_reference_max_abs_err": err_ii}
     phases.done("paper grid (fake backend)")
 
-    # -- 6. write, load and serve a bundle at full width ------------------------
+    # -- 8. write, load and serve a bundle at full width ------------------------
     # MUXQ + SmoothQuant on the fused backend, only the kernel buffers kept
     # (pack target "fused"), int4 KV calibration; saved, loaded back, and
     # served on int4 pages beside the in-memory artifact.  The bundle (its
@@ -1099,7 +1472,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("write, load and serve a bundle")
 
-    # -- 7. the serving launcher, in-process -------------------------------------
+    # -- 9. the serving launcher, in-process -------------------------------------
     launch_json = out_dir / "launch_serve.json"
     reset_counts()
     torch.cuda.synchronize()
@@ -1123,7 +1496,7 @@ def main() -> int:
                           "spec_verify_steps": lrep["spec_verify_steps"]}
     phases.done("launcher")
 
-    # -- 8. end to end: qwen2-0.5b at full width, int4 pages + speculation ------
+    # -- 10. end to end: qwen2-0.5b at full width, int4 pages + speculation ------
     qdh = qcfg.head_dim
     k0 = qcfg.n_heads * qdh                 # K columns of wqkv start here
     k_hot = [k0 + 5, k0 + qdh * (qkvh - 1) + (qdh // 2 + 5) % qdh]
@@ -1335,7 +1708,227 @@ def main() -> int:
         "streams": [[r.prompt, r.out_tokens] for r in qreqs]}
     phases.done("serve qwen2-0.5b")
 
-    # -- 9. result lines ---------------------------------------------------------
+    # -- 11-12. the other dense decoders served at full width -------------------
+    def plant(c, params_, seed):
+        """Seeded outliers in random weights: 8 RMSNorm gain channels x20
+        (activation outliers for MUXQ's masks) and two K channels of wqkv
+        x20 (KV outliers for int4 pages' redistribution)."""
+        hot_ = torch.randperm(c.d_model,
+                              generator=torch.Generator().manual_seed(seed)
+                              )[:8].to(dev)
+        k0_ = c.n_heads * c.head_dim
+        k_hot_ = [k0_ + 5, k0_ + c.head_dim * (c.n_kv_heads - 1)
+                  + (c.head_dim // 2 + 5) % c.head_dim]
+        for lp in params_["layers"]:
+            lp["ln1"]["gain"][hot_] = 19.0      # RMSNorm (1 + gain): x20
+            lp["ln2"]["gain"][hot_] = 19.0
+            lp["attn"]["wqkv"][:, k_hot_] *= 20.0
+
+    def _leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            yield tree
+            return
+        for v_ in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(v_)
+
+    def wide_artifact(c, label):
+        """Seeded weights at full width and cut depth, calibrated through
+        the dense forward (two 2 x 64-token batches) and packed under the
+        fused-MUXQ policy with the int4 KV calibration."""
+        t0 = time.perf_counter()
+        params_ = T.init_params(c, seed=0, device=dev)
+        plant(c, params_, 3)
+        batches_ = [{"tokens": torch.randint(
+            0, c.vocab_size, (2, 64),
+            generator=torch.Generator().manual_seed(20 + i)).numpy()}
+            for i in range(2)]
+        stats_, calib_ = calibrate_model(c, params_, batches_, device=dev)
+        t1 = time.perf_counter()
+        art_ = build_artifact(c, params_, policy, stats_.masks(),
+                              kv_calib=calib_)
+        t2 = time.perf_counter()
+        n_par = sum(t.numel() for t in _leaves(params_))
+        runs_ = sum(1 for b_ in art_.kernel_buffers.values()
+                    if int((b_["block_scale"] > 1).sum()))
+        n_kv = int(calib_["k_mask"].sum() + calib_["v_mask"].sum())
+        print(f"{label}: {c.n_layers} layers at full width, {n_par / 1e9:.3f} "
+              f"G f32 parameters ({4 * n_par / 2**30:.2f} GiB on the card); "
+              f"init + calibrate {t1 - t0:.1f} s, pack "
+              f"{len(art_.kernel_buffers)} sites {t2 - t1:.1f} s; {runs_} "
+              f"sites carry a 2^e run, {n_kv} KV outlier channels; peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB", flush=True)
+        if not runs_ or not n_kv:
+            raise AssertionError(f"{label}: no outlier run or KV outlier")
+        return params_, art_, calib_
+
+    ctoks = {}
+
+    def step_logits(c, params_, ctx_, mode, kv_calib=None, fused="auto",
+                    paged="auto", verify=False, nudge=None):
+        """Logits of a 2-slot 32-token prefill chunk, then of one decode
+        step (or a k = 4 verify block) from that pool: the in-situ gates.
+        ``nudge``: the plain paged version with its outputs moved one ulp
+        (a seed; implies ``paged="ref"``)."""
+        if c.name not in ctoks:
+            gg = torch.Generator().manual_seed(8)
+            ctoks[c.name] = tuple(torch.randint(
+                0, c.vocab_size, shape, generator=gg,
+                dtype=torch.int32).to(dev) for shape in ((2, 32), (2, 4)))
+        toks_, block_ = ctoks[c.name]
+        pool = PagePool(c, 2, 64, page_size=ps, mode=mode, dtype=torch.float32,
+                        kv_calib=kv_calib, device=dev)
+        prev = (dispatch.set_fused_impl(fused),
+                PA.set_paged_impl("ref" if nudge else paged))
+        plain = PA.paged_attention_plain
+        if nudge is not None:
+            PA.paged_attention_plain = nudged(plain, nudge)
+        try:
+            with torch.no_grad():
+                lp_, _ = T.prefill_chunk_paged(c, params_, toks_, pool.kv,
+                                               cal_table, zero2, zero2, full32,
+                                               ctx_)
+                if verify:
+                    ld_, _ = T.decode_verify_paged(
+                        c, params_, block_, pool.kv, cal_table, full32,
+                        torch.full((2,), 4, dtype=torch.int32, device=dev),
+                        ctx_)
+                else:
+                    ld_, _ = T.decode_step_paged(c, params_, block_[:, :1],
+                                                 pool.kv, cal_table, full32,
+                                                 ctx_)
+        finally:
+            dispatch.set_fused_impl(prev[0])
+            PA.set_paged_impl(prev[1])
+            PA.paged_attention_plain = plain
+        return lp_[..., :c.vocab_size], ld_[..., :c.vocab_size]
+
+    def in_situ(c, params_, ctx_, mode, kv_calib, label, verify=False):
+        """(a) the fused kernels against their plain versions, everything
+        else shared: bit-equal logits.  At fp weights, the paged kernel
+        against its plain version: (b) on f32 pages, where only the
+        attention sums' order differs, within LOGIT_RTOL of the logit
+        scale; (b') on the served ``mode`` pages, where an ulp of K or V
+        flips a code on a rounding boundary and later layers carry the
+        flip, within NUDGE_FACTOR x the spread of the plain version
+        against itself with every attention output nudged one ulp."""
+        ka = step_logits(c, params_, ctx_, mode, kv_calib, verify=verify)
+        kr = step_logits(c, params_, ctx_, mode, kv_calib, fused="ref",
+                         verify=verify)
+        if not all(torch.isfinite(x).all() and torch.equal(x, y)
+                   for x, y in zip(ka, kr)):
+            raise AssertionError(f"{label} (a): the fused kernels change the "
+                                 "logits in situ")
+
+        def gap(xs, ys):
+            return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
+        fk = step_logits(c, params_, FpCtx(), "fp", verify=verify)
+        fr = step_logits(c, params_, FpCtx(), "fp", paged="ref", verify=verify)
+        err_b = [float((x - y).abs().max()) for x, y in zip(fk, fr)]
+        scales = [float(y.abs().max()) for y in fr]
+        qk_ = step_logits(c, params_, FpCtx(), mode, kv_calib, verify=verify)
+        qr_ = step_logits(c, params_, FpCtx(), mode, kv_calib, paged="ref",
+                          verify=verify)
+        err_q = gap(qk_, qr_)
+        spreads = [gap(step_logits(c, params_, FpCtx(), mode, kv_calib,
+                                   verify=verify, nudge=seed_), qr_)
+                   for seed_ in (1, 2, 3)]
+        step = "verify block" if verify else "decode step"
+        print(f"logits {label}: (a) fused kernels bit-equal to their plain "
+              f"versions on the prefill chunk and the {step} ({mode} pages); "
+              f"fp weights, paged kernel vs plain: (b) f32 pages max abs err "
+              f"{err_b[0]:.3e} / {err_b[1]:.3e} (|logits| max "
+              f"{scales[0]:.3f} / {scales[1]:.3f}, tolerance {LOGIT_RTOL} x "
+              f"max); (b') {mode} pages max abs err {err_q:.3e}, plain vs "
+              f"plain with 1-ulp nudges {[round(x, 5) for x in spreads]} "
+              f"(gate: <= {NUDGE_FACTOR} x max)  [{card}]", flush=True)
+        if any(e > LOGIT_RTOL * s_ for e, s_ in zip(err_b, scales)):
+            raise AssertionError(f"{label} (b): the paged kernel disagrees "
+                                 "with the plain version on f32 pages")
+        if err_q > NUDGE_FACTOR * max(spreads):
+            raise AssertionError(f"{label} (b'): kernel vs plain on {mode} "
+                                 f"pages {err_q} exceeds {NUDGE_FACTOR} x the "
+                                 f"1-ulp spread {max(spreads)}")
+        return {"fp_weights_f32_pages_max_abs_err": err_b,
+                "logits_scale": scales,
+                f"fp_weights_{mode}_pages_max_abs_err": err_q,
+                "nudge_spreads": spreads}
+
+    wprompts = ["The quantized model serves every request through paged "
+                "attention on the card.", "one int8 GEMM",
+                "Outlier channels are shifted down by a power of two.",
+                "Chunked prefill interleaves with the pooled decode."]
+
+    # -- 11. qwen2.5-14b: untied head, GQA g 5, dh 128, int8 pages ---------------
+    q14 = get_config("qwen2.5-14b").replace(n_layers=Q14_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    p14, a14, c14 = wide_artifact(q14, "qwen2.5-14b")
+    e14 = ServeEngine(q14, a14, max_batch=4, s_max=256, prefill_chunk=32,
+                      kv_mode="int8", device=dev)
+    gates14 = in_situ(q14, e14.params, e14.ctx, "int8", None, "qwen2.5-14b")
+    # (c) the head is lm_head: the same model read with a tied head differs
+    untied = step_logits(q14, e14.params, FpCtx(), "int8")[0]
+    tied = step_logits(q14.replace(tie_embeddings=True), e14.params, FpCtx(),
+                       "int8")[0]
+    head_gap = float((untied - tied).abs().max())
+    if not head_gap > 0.1 * float(untied.abs().max()):
+        raise AssertionError(f"qwen2.5-14b (c): logits through embed^T within "
+                             f"{head_gap} of the lm_head logits")
+    print(f"qwen2.5-14b (c): logits through lm_head differ from x @ embed^T "
+          f"by up to {head_gap:.3f}", flush=True)
+    r14, rep14, l14, s14 = serve(e14, wprompts, 16, "qwen2.5-14b int8 (4 of 48 "
+                                 "layers, full width)")
+    for key in ("rowwise_quantize", "muxq_gemm", "paged_attention[int8]"):
+        if l14[key] <= 0:
+            raise AssertionError(f"qwen2.5-14b serve never launched {key}: {l14}")
+    main_runs["qwen2.5-14b int8"] = l14
+    report["serve_qwen2_5_14b"] = {
+        "layers": q14.n_layers, "seconds": s14, "launches": l14,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "head_gap": head_gap, **gates14,
+        "report": {k_: v_ for k_, v_ in rep14.items() if k_ != "decode_buckets"},
+        "streams": [r.out_tokens for r in r14]}
+    del p14, a14, c14, e14, untied, tied
+    torch.cuda.empty_cache()
+    phases.done("serve qwen2.5-14b")
+
+    # -- 12. gemma2-9b: dh 224, window 4096, softcaps, sandwich norms, int4 + ngram
+    g9 = get_config("gemma2-9b").replace(n_layers=G9_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    p9, a9, c9 = wide_artifact(g9, "gemma2-9b")
+    e9 = ServeEngine(g9, a9, max_batch=4, s_max=256, prefill_chunk=32,
+                     kv_mode="int4", spec_mode="ngram", spec_k=4, device=dev)
+    gates9 = in_situ(g9, e9.params, e9.ctx, "int4", c9, "gemma2-9b",
+                     verify=True)
+    # served with the sandwich post-norms' gains at SERVE_BRANCH_SCALE (the
+    # residual stream then follows the scaled embedding and the greedy
+    # stream repeats, so n-gram drafts match); the packed sites are unchanged
+    for lp in e9.params["layers"]:
+        lp["ln1b"]["gain"].fill_(SERVE_BRANCH_SCALE - 1.0)
+        lp["ln2b"]["gain"].fill_(SERVE_BRANCH_SCALE - 1.0)
+    if float(e9.pool.kv["k_redist"].max()) <= 1.0:
+        raise AssertionError("gemma2 int4 pool runs with identity redistribution")
+    r9, rep9, l9, s9 = serve(e9, qprompts, 16, "gemma2-9b int4 + ngram spec (2 "
+                             "of 42 layers, full width)")
+    for key in ("rowwise_quantize", "muxq_gemm", "paged_attention[int4]"):
+        if l9[key] <= 0:
+            raise AssertionError(f"gemma2 serve never launched {key}: {l9}")
+    if rep9["spec_verify_steps"] <= 0:
+        raise AssertionError("gemma2: the speculative verify step never ran")
+    print(f"gemma2-9b serve: {rep9['spec_verify_steps']} verify steps, "
+          f"{rep9['spec_accepted']} of {rep9['spec_proposed']} drafts "
+          f"accepted, {rep9['prefix_hits']} prefix hits", flush=True)
+    main_runs["gemma2-9b int4 spec"] = l9
+    report["serve_gemma2_9b"] = {
+        "layers": g9.n_layers, "seconds": s9, "launches": l9,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30, **gates9,
+        "report": {k_: v_ for k_, v_ in rep9.items() if k_ != "decode_buckets"},
+        "streams": [r.out_tokens for r in r9]}
+    del p9, a9, c9, e9
+    torch.cuda.empty_cache()
+    phases.done("serve gemma2-9b")
+
+    # -- 13. result lines ---------------------------------------------------------
     pa_src = ("src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:161")
     sources = {"rowwise_quantize": ("src/repro_torch/csrc/rowwise_quantize.cu",

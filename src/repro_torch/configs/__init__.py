@@ -1,1 +1,1 @@
-from repro_torch.configs.registry import get_config  # noqa: F401
+from repro_torch.configs.registry import get_config, list_archs  # noqa: F401

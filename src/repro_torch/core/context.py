@@ -21,8 +21,10 @@ factors at use (raw weights only); ``smooth_factors`` holds the final
 divisor s of a ``QuantArtifact``.  With s the ctx applies X/s itself, and
 s*W on a raw weight; a prequantized or packed weight already holds Q(s*W),
 so a smooth-method site with such a weight and no factor raises.
-The MoE per-expert matmul and the quality observer hook join with their
-subsystems (ROADMAP Queue 1, items 7-8).
+An installed quality observer (``dispatch.set_quality_observer``) sees
+every quantized site's activation, as the reference's eager path does;
+the serving engine suspends it around its step calls.  The MoE
+per-expert matmul joins with its family (ROADMAP Queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -128,6 +130,18 @@ class QuantCtx:
             return self._fused(name, x, cfg)
         return self._fake(name, x, w, cfg)
 
+    def _observe(self, name: str, x: torch.Tensor, cfg: QuantConfig) -> None:
+        """Report the to-be-quantized activation to the installed quality
+        observer (``repro_torch.obs.quality``), with the site's static mask;
+        a no-op when none is installed or observation is suspended."""
+        obs = dispatch.quality_observer()
+        if obs is None:
+            return
+        mask = self.masks.get(name) if cfg.outlier_mode == "static" else None
+        obs.observe_activation(
+            name, x, qmax=2 ** (cfg.act_bits - 1) - 1,
+            mask=None if mask is None else mask.cpu().numpy())
+
     def _missing_factor(self, name: str, cfg: QuantConfig, backend: str):
         return RuntimeError(
             f"site {name!r}: method {cfg.method!r} on the {backend!r} "
@@ -142,6 +156,7 @@ class QuantCtx:
             if factor is None:
                 raise self._missing_factor(name, cfg, "fused")
             x = (x / factor).to(x.dtype)
+        self._observe(name, x, cfg)
         buf = self.kernel_buffers.get(name)
         if buf is None:
             raise RuntimeError(
@@ -164,6 +179,7 @@ class QuantCtx:
             elif _is_prequant(w):
                 raise self._missing_factor(name, cfg, "fake")
             # else: quantize at use; qmatmul derives factors from the hint
+        self._observe(name, x, cfg)
         if _is_prequant(w):
             return _prequant_matmul(x, w, cfg, mask)
         return qmatmul(x, w.to(x.dtype), cfg, mask=mask,

@@ -18,9 +18,12 @@ Buffer layout (statics derive from shapes — ``bk = K_pad / nb``):
 Execution (``set_fused_impl``): ``auto`` launches the CUDA kernels for
 CUDA tensors and takes the plain versions for CPU tensors; ``ref`` forces
 the plain oracle path (``ops.muxq_linear_ref``) on any device.
+
+The quality observer's slot (``set_quality_observer``) lives here too.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Literal, Optional
 
 import numpy as np
@@ -45,6 +48,41 @@ def set_fused_impl(impl: FusedImpl) -> FusedImpl:
         raise ValueError(f"unknown fused impl {impl!r}")
     prev, _FUSED_IMPL = _FUSED_IMPL, impl
     return prev
+
+
+# Opt-in quantization-quality observer (repro_torch.obs.quality).  When
+# installed, QuantCtx reports eager activations at every quantized site;
+# dispatch owns the slot (as it owns _FUSED_IMPL) so that the core context
+# never imports repro_torch.obs.  The reference observes only eager calls
+# (its jitted serve steps carry tracers); the port's serve steps are eager
+# too, so the engine runs them under ``observation_suspended()``.
+_QUALITY_OBSERVER = None
+_SUSPENDED = 0
+
+
+def set_quality_observer(obs):
+    """Install (or clear, with None) the process-wide quality observer;
+    returns the previous one."""
+    global _QUALITY_OBSERVER
+    prev, _QUALITY_OBSERVER = _QUALITY_OBSERVER, obs
+    return prev
+
+
+def quality_observer():
+    """The installed quality observer, or None (the default, and always
+    inside ``observation_suspended()``)."""
+    return None if _SUSPENDED else _QUALITY_OBSERVER
+
+
+@contextlib.contextmanager
+def observation_suspended():
+    """No activation is observed inside this block (nestable)."""
+    global _SUSPENDED
+    _SUSPENDED += 1
+    try:
+        yield
+    finally:
+        _SUSPENDED -= 1
 
 
 def site_backend(cfg) -> Backend:

@@ -17,3 +17,18 @@ def rowwise_quantize_ref(x: torch.Tensor, bits: int = 8):
 def muxq_gemm_ref(x_int, w_int, block_scale, sx, sw, block_k: int) -> torch.Tensor:
     """Oracle for the fused MUXQ GEMM (paper Eq. 7, one-GEMM form)."""
     return muxq_gemm_plain(x_int, w_int, block_scale, sx, sw, block_k)
+
+
+def muxq_gemm_two_matmul_ref(x_int, w_int, block_scale, sx, sw,
+                             block_k: int) -> torch.Tensor:
+    """The literal paper form, a second independent oracle for the fused
+    GEMM: Y_body + (2^e - 1) * Y_aux, with Aux the outlier channels of the
+    same integer activations (shared scales).  Both integer products run
+    through ``quantizers.int_matmul`` (exact in float64)."""
+    mask_k = torch.repeat_interleave(block_scale > 1, block_k)
+    scale_k = torch.repeat_interleave(block_scale, block_k).to(torch.int32)
+    xi = x_int.to(torch.int32)
+    y_body = Q.int_matmul(xi, w_int)
+    aux = torch.where(mask_k[None, :], xi, 0) * (scale_k - 1)[None, :]
+    y_aux_scaled = Q.int_matmul(aux, w_int)
+    return (y_body + y_aux_scaled).float() * sx * sw

@@ -7,10 +7,13 @@ prompts through the continuous-batching engine and report serving metrics
 
 The flags are the reference launcher's (``repro.launch.serve``) plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
-``--json-out PATH`` dumps the final metrics report and the registry
-snapshot as JSON.  Flags whose subsystems the port does not have yet are
-refused: ``--tp`` above 1 (tensor-parallel serving) and ``--trace-out`` /
-``--obs`` (the flight recorder and quality observers)."""
+``--json-out PATH`` dumps the final metrics report, the registry snapshot
+and (with ``--obs``) the quality snapshot as JSON.  ``--trace-out PATH``
+records the run's request/step lifecycle and writes a Chrome-trace /
+Perfetto JSON; ``--obs`` turns on the quant-quality observers (per-site
+activation stats on eager quantized matmuls, KV-page saturation and
+outlier drift sampled from the pool between steps).  ``--tp`` above 1
+(tensor-parallel serving) is refused: the port serves on one device."""
 from __future__ import annotations
 
 import argparse
@@ -23,7 +26,10 @@ from repro_torch.configs import get_config
 from repro_torch.core.muxq import QuantConfig
 from repro_torch.core.policy import SitePolicy
 from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
+from repro_torch.obs.quality import QualityObserver
+from repro_torch.obs.trace import TraceRecorder
 from repro_torch.quantize import PACK_TARGETS, quantize_model
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -88,14 +94,19 @@ def main(argv=None) -> int:
     ap.add_argument("--prompts", nargs="*",
                     default=["the model computes", "a kernel shards"])
     ap.add_argument("--trace-out", default=None,
-                    help="lifecycle trace output (refused: the port has no "
-                         "flight recorder yet)")
+                    help="record request/step lifecycle spans and write a "
+                         "Chrome-trace/Perfetto JSON here (load it in "
+                         "ui.perfetto.dev); tracing is off (zero-cost) "
+                         "when unset")
     ap.add_argument("--obs", action="store_true",
-                    help="quant-quality observers (refused: the port has no "
-                         "quality observers yet)")
+                    help="enable the quant-quality observers: per-site "
+                         "activation amax/clip-rate on eager quantized "
+                         "matmuls and KV-page saturation + outlier-mask "
+                         "drift sampled from the pool between steps")
     ap.add_argument("--json-out", default=None,
                     help="dump the final metrics report plus the registry "
-                         "snapshot as JSON to this path")
+                         "snapshot (and the --obs quality snapshot) as "
+                         "JSON to this path")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     args = ap.parse_args(argv)
@@ -106,13 +117,6 @@ def main(argv=None) -> int:
         raise SystemExit(
             f"--tp {args.tp}: tensor-parallel serving is not ported to "
             "repro_torch yet (ROADMAP Queue 1, item 9); serve with --tp 1")
-    for flag, on in (("--trace-out", args.trace_out is not None),
-                     ("--obs", args.obs)):
-        if on:
-            raise SystemExit(
-                f"{flag}: the flight recorder and quality observers are not "
-                "ported to repro_torch yet (ROADMAP Queue 1, item 7); run "
-                "without it")
     if args.quant != "fp" and args.backend == "fused":
         if args.quant == "llm_int8":
             raise SystemExit("llm_int8 has no fused kernel realization")
@@ -126,6 +130,8 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch, reduced=True)
     params = T.init_params(cfg, seed=0, device=device)
     kv_mode = None if args.kv_mode == "auto" else args.kv_mode
+    recorder = TraceRecorder() if args.trace_out else None
+    quality = QualityObserver() if args.obs else None
     engine_kw = dict(max_batch=args.max_batch, s_max=args.s_max,
                      kv_mode=kv_mode, page_size=args.page_size,
                      n_pages=args.n_pages, prefill_chunk=args.prefill_chunk,
@@ -133,8 +139,21 @@ def main(argv=None) -> int:
                      prefill_aging=args.prefill_aging,
                      cache_dtype=torch.bfloat16,
                      spec_mode=args.spec_mode, spec_k=args.spec_k,
-                     device=device)
+                     recorder=recorder, quality=quality, device=device)
+    # activation seam: eager quantized matmuls report per-site stats (the
+    # engine's step calls run with observation suspended)
+    prev_obs = dispatch.set_quality_observer(quality)
+    try:
+        engine, reqs = _serve(args, cfg, params, engine_kw)
+    finally:
+        dispatch.set_quality_observer(prev_obs)
+    _report(args, engine, reqs, recorder, quality)
+    return 0
 
+
+def _serve(args, cfg, params, engine_kw):
+    """Build the engine (quantizing first, unless --quant fp) and serve the
+    prompts; returns (engine, requests)."""
     if args.quant == "fp":
         engine = ServeEngine(cfg, params, **engine_kw)
     else:
@@ -147,12 +166,18 @@ def main(argv=None) -> int:
         pipe = TokenPipeline(PipelineConfig(seq_len=64, global_batch=2))
         artifact = quantize_model(cfg, params,
                                   [next(pipe) for _ in range(2)], policy,
-                                  pack_target=args.pack_target, device=device)
+                                  pack_target=args.pack_target,
+                                  device=engine_kw["device"])
         if args.save_artifact:
             print(f"artifact saved to {artifact.save(args.save_artifact)}")
         engine = ServeEngine(cfg, artifact, **engine_kw)
     reqs = [Request(p, max_new_tokens=args.max_new) for p in args.prompts]
     engine.generate(reqs)
+    return engine, reqs
+
+
+def _report(args, engine, reqs, recorder, quality) -> None:
+    """The summary lines, the trace file and the --json-out document."""
     for r in reqs:
         print(f"{r.prompt!r} -> {ServeEngine.text(r)!r} ({len(r.out_tokens)} tokens)")
     rep = engine.metrics.report()
@@ -183,16 +208,27 @@ def main(argv=None) -> int:
              f"{rep['spec_verify_steps']} verify steps, "
              f"{rep['decode_steps_saved']} slot-steps saved"
              if args.spec_mode != "off" else ""))
+    if quality is not None:
+        q = quality.snapshot()
+        print(f"obs: {len(q['sites'])} quantized sites observed, "
+              f"{q['pool_samples']} KV-pool samples")
+        for name, s in sorted(q["sites"].items()):
+            print(f"  {name}: amax {s['amax']:.3g} "
+                  f"clip {s['clip_rate']:.2%} "
+                  f"outlier-hit {s['outlier_hit_rate']:.0%}")
+    if recorder is not None:
+        path = recorder.export_chrome(args.trace_out)
+        print(f"trace: {len(recorder.events)} events "
+              f"({recorder.dropped} dropped) -> {path}")
     if args.json_out:
         reg = getattr(engine.metrics, "registry", None)
         doc = {"report": rep,
                "registry": reg.snapshot() if reg is not None else {},
-               "quality": {}}
+               "quality": quality.snapshot() if quality is not None else {}}
         out = Path(args.json_out)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(doc, indent=2, sort_keys=True))
         print(f"json: report + registry snapshot -> {out}")
-    return 0
 
 
 if __name__ == "__main__":

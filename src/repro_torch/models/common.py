@@ -3,8 +3,8 @@ cross-entropy.
 
 Counterpart of ``repro/models/common.py``.  ``ModelConfig`` is the
 reference's frozen dataclass with the fields of the families the port
-serves (the MoE, SSM, hybrid, encoder-decoder and VLM fields join with
-those families); ``compute_dtype`` maps the dtype name to a
+serves (the MoE, SSM, hybrid and encoder-decoder fields join with those
+families); ``compute_dtype`` maps the dtype name to a
 ``torch.dtype``.
 """
 from __future__ import annotations
@@ -40,6 +40,9 @@ class ModelConfig:
     rope_theta: float = 10000.0
 
     mlp_type: str = "swiglu"                     # swiglu|gelu
+
+    # vlm (internvl2) — patch embeds prepended to token embeds
+    n_patches: int = 0
 
     norm: str = "rmsnorm"                        # rmsnorm|layernorm
     norm_eps: float = 1e-5

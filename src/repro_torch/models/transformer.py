@@ -48,12 +48,14 @@ def _norm(cfg, d, device):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Random weights from ``seed``, in the port's layout.  Dense family,
-    tied embeddings.  ``torch.Generator`` streams differ from
-    ``jax.random``: tests that compare with the reference pass its params
-    through ``repro_torch.convert.from_jax_params`` instead."""
-    if cfg.family != "dense" or not cfg.tie_embeddings:
-        raise NotImplementedError("the port initializes tied dense decoders only")
+    """Random weights from ``seed``, in the port's layout, for the dense
+    family: sandwich norms (``ln1b``/``ln2b``) where ``cfg.sandwich_norm``
+    is set, and an ``lm_head`` [d, V_pad] for an untied head.
+    ``torch.Generator`` streams differ from ``jax.random``: tests that
+    compare with the reference pass its params through
+    ``repro_torch.convert.from_jax_params`` instead."""
+    if cfg.family != "dense":
+        raise NotImplementedError("the port initializes dense decoders only")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
@@ -77,8 +79,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
                    "wo": _dense(gen, (f, d), f, device),
                    "bi": torch.zeros(f, device=device),
                    "bo": torch.zeros(d, device=device)}
-        params["layers"].append({"ln1": _norm(cfg, d, device), "attn": attn,
-                                 "ln2": _norm(cfg, d, device), "mlp": mlp})
+        layer = {"ln1": _norm(cfg, d, device), "attn": attn,
+                 "ln2": _norm(cfg, d, device), "mlp": mlp}
+        if cfg.sandwich_norm:
+            layer["ln1b"] = _norm(cfg, d, device)
+            layer["ln2b"] = _norm(cfg, d, device)
+        params["layers"].append(layer)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _dense(gen, (d, cfg.padded_vocab), d, device)
     return params
 
 
@@ -86,10 +94,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 # Paged serving steps
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, params, tokens) -> torch.Tensor:
+def _embed(cfg: ModelConfig, params, tokens, extra=None) -> torch.Tensor:
+    """Token embeddings; with ``cfg.n_patches`` and ``extra["patches"]``
+    [b, n_patches, d] the patch embeddings come first (the VLM prefix)."""
     x = params["embed"][tokens.long()].to(cfg.compute_dtype)
     if cfg.scale_embed:
         x = x * math.sqrt(cfg.d_model)
+    if cfg.n_patches and extra is not None and "patches" in extra:
+        x = torch.cat([extra["patches"].to(x.dtype), x], dim=1)
     return x
 
 
@@ -112,8 +124,17 @@ def _block(cfg, lp, ctx, x, attend):
 
 
 def _head(cfg, params, x):
+    """Final norm, the LM head (the embedding's transpose when tied, else
+    ``params["lm_head"]`` [d, V_pad]) and the final softcap."""
     x = apply_norm(cfg, params["ln_f"], x)
-    logits = x @ params["embed"].T.to(x.dtype)
+    if cfg.tie_embeddings:
+        head = params["embed"].T
+    elif "lm_head" in params:
+        head = params["lm_head"]
+    else:
+        raise ValueError(f"{cfg.name} has an untied LM head, but its params "
+                         "carry no 'lm_head'")
+    logits = x @ head.to(x.dtype)
     return softcap(logits, cfg.final_softcap)
 
 
@@ -130,17 +151,19 @@ def _run(cfg, params, x, kv, routing, ctx, step):
     return _head(cfg, params, x)
 
 
-def forward(cfg: ModelConfig, params, tokens, ctx=None) -> dict:
+def forward(cfg: ModelConfig, params, tokens, ctx=None, *, extra=None) -> dict:
     """Full-sequence eager forward of the dense family (the reference's
     ``forward(..., scan=False)``): sites carry ``layer{i}/`` names, so a
     ``CollectCtx`` attributes calibration stats per layer, and each
-    layer's attention reports its K/V to the KV observer.  tokens [b, s].
-    Returns {"logits": [b, s, V]}."""
+    layer's attention reports its K/V to the KV observer.  tokens [b, s];
+    ``extra={"patches": [b, n_patches, d]}`` prefixes a VLM's patch
+    embeddings (``cfg.n_patches``).  Returns {"logits": [b, s', V]}, s' =
+    s plus the patches."""
     if cfg.family != "dense":
         raise ValueError(f"the port's forward runs the dense family, not "
                          f"{cfg.family}")
     ctx = ctx or FpCtx()
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, extra)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     for i, (lp, kind) in enumerate(zip(params["layers"], cfg.blocks)):

@@ -18,8 +18,23 @@ artifact's ``kv_calib`` section for their outlier redistribution.
 drafts up to ``spec_k - 1`` tokens per slot and one
 ``decode_verify_paged`` call scores every slot's draft block.
 
-Not ported yet: tensor parallelism, the flight recorder and quality
-observers.
+Observability: ``recorder=`` (a ``repro_torch.obs.trace`` recorder;
+None is the no-op ``NULL_RECORDER``) and ``quality=`` (a
+``repro_torch.obs.quality.QualityObserver`` that the scheduler samples
+the pool into) are host-side only.  The three step calls run under
+``dispatch.observation_suspended()``: the reference's steps are jitted
+and never reach its activation observer, and the port's eager steps must
+not either (the snapshot would differ, and every observed site would cost
+a device-to-host copy).
+
+``decode_traces`` / ``prefill_traces`` / ``verify_traces`` count what the
+reference's jit counts as traces: the first step call of each bucket key
+(page budget; (chunk, page); (k, page)).  Nothing is compiled here, but
+that first call is exactly where a jit retraces and where a CUDA-graph
+capture per bucket would be recorded; each time one grows the recorder
+gets a ``COMPILE`` event, as in ``repro/serve/engine.py``.
+
+Not ported yet: tensor parallelism.
 """
 from __future__ import annotations
 
@@ -31,8 +46,10 @@ import torch
 from repro_torch.convert import as_port_params
 from repro_torch.core.context import QuantCtx, as_ctx
 from repro_torch.data import tokenizer as tok
+from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
+from repro_torch.obs.trace import NULL_RECORDER
 from repro_torch.quantize import QuantArtifact
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.pool import PagePool
@@ -67,7 +84,8 @@ class ServeEngine:
                  cache_dtype=torch.bfloat16, prefix_sharing: bool = True,
                  prefill_chunk: int = 32, prefill_slots: int = 2,
                  prefill_aging: float = 1.0, spec_mode: str = "off",
-                 spec_k: int = 4, device="cuda"):
+                 spec_k: int = 4, recorder=None, quality=None,
+                 device="cuda"):
         if cfg.family != "dense":
             raise ValueError(f"the engine serves dense decoders, not {cfg.family}")
         if isinstance(params, QuantArtifact):
@@ -105,32 +123,66 @@ class ServeEngine:
         self.spec_mode = spec_mode
         self.spec_k = int(spec_k)
         self.metrics = ServeMetrics()
+        self.recorder = recorder if recorder is not None else NULL_RECORDER
+        self.quality = quality
         self.decode_buckets = set()      # page-budget buckets seen (lifetime)
         self.prefill_buckets = set()     # (chunk, page) bucket pairs (lifetime)
         self.verify_buckets = set()      # (k, page) bucket pairs (lifetime)
+        if self.recorder.enabled:
+            self.recorder.set_metadata(mesh_devices=1, kv_shards=1)
+
+    # the reference's jit-trace counters: one per bucket key first used
+    @property
+    def decode_traces(self) -> int:
+        return len(self.decode_buckets)
+
+    @property
+    def prefill_traces(self) -> int:
+        return len(self.prefill_buckets)
+
+    @property
+    def verify_traces(self) -> int:
+        return len(self.verify_buckets)
+
+    def _first_use(self, kind: str, buckets: set, key, **args) -> None:
+        """Record a bucket key; a new one is a 'trace' (COMPILE event)."""
+        if key in buckets:
+            return
+        buckets.add(key)
+        if self.recorder.enabled:
+            self.recorder.compile_event(kind, **args, traces=len(buckets))
 
     # -- scheduler plumbing ---------------------------------------------------
 
     @torch.no_grad()
     def _prefill_pool(self, tokens, kv, page_table, start, write_lo, write_hi):
-        self.prefill_buckets.add((int(tokens.shape[1]), int(page_table.shape[1])))
-        logits, kv = T.prefill_chunk_paged(
-            self.cfg, self.params, tokens, kv, page_table, start, write_lo,
-            write_hi, self.ctx)
+        cb, pb = int(tokens.shape[1]), int(page_table.shape[1])
+        with dispatch.observation_suspended():
+            logits, kv = T.prefill_chunk_paged(
+                self.cfg, self.params, tokens, kv, page_table, start,
+                write_lo, write_hi, self.ctx)
+        self._first_use("prefill", self.prefill_buckets, (cb, pb),
+                        chunk_bucket=cb, page_bucket=pb)
         return torch.argmax(logits[:, :, : self.cfg.vocab_size], dim=-1), kv
 
     @torch.no_grad()
     def _decode_pool(self, tokens, kv, page_table, pos):
-        self.decode_buckets.add(int(page_table.shape[1]))
-        logits, kv = T.decode_step_paged(self.cfg, self.params, tokens, kv,
-                                         page_table, pos, self.ctx)
+        pb = int(page_table.shape[1])
+        with dispatch.observation_suspended():
+            logits, kv = T.decode_step_paged(self.cfg, self.params, tokens,
+                                             kv, page_table, pos, self.ctx)
+        self._first_use("decode", self.decode_buckets, pb, page_bucket=pb)
         return torch.argmax(logits[:, -1, : self.cfg.vocab_size], dim=-1), kv
 
     @torch.no_grad()
     def _verify_pool(self, tokens, kv, page_table, pos, n_valid):
-        self.verify_buckets.add((int(tokens.shape[1]), int(page_table.shape[1])))
-        logits, kv = T.decode_verify_paged(self.cfg, self.params, tokens, kv,
-                                           page_table, pos, n_valid, self.ctx)
+        kb, pb = int(tokens.shape[1]), int(page_table.shape[1])
+        with dispatch.observation_suspended():
+            logits, kv = T.decode_verify_paged(self.cfg, self.params, tokens,
+                                               kv, page_table, pos, n_valid,
+                                               self.ctx)
+        self._first_use("verify", self.verify_buckets, (kb, pb),
+                        k_bucket=kb, page_bucket=pb)
         return torch.argmax(logits[:, :, : self.cfg.vocab_size], dim=-1), kv
 
     # -- public ---------------------------------------------------------------
@@ -143,7 +195,8 @@ class ServeEngine:
                          prefill_chunk=self.prefill_chunk,
                          prefill_slots=self.prefill_slots,
                          prefill_aging=self.prefill_aging,
-                         spec_mode=self.spec_mode, spec_k=self.spec_k)
+                         spec_mode=self.spec_mode, spec_k=self.spec_k,
+                         recorder=self.recorder, quality=self.quality)
 
     def generate(self, requests: List[Request],
                  arrivals: Optional[Sequence[int]] = None) -> List[Request]:

@@ -81,6 +81,9 @@ class KVQuantizer:
     pool-array layout."""
 
     mode: str = "fp"
+    # symmetric integer ceiling of the mode's codes (None for fp pages): the
+    # quality observer counts saturated codes of sampled pages against it
+    qmax: Optional[int] = None
 
     def quantize(self, k, v) -> Dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -131,6 +134,7 @@ class Int8KVQuantizer(KVQuantizer):
     """Per-(position, head) abs-max int8 (``kvcache.quantize_kv``)."""
 
     mode = "int8"
+    qmax = 127
 
     def quantize(self, k, v):
         return quantize_kv(k, v)
@@ -163,6 +167,7 @@ class Int4KVQuantizer(KVQuantizer):
     them back.  Scales are bf16."""
 
     mode = "int4"
+    qmax = INT4_MAX
     scale_dtype = torch.bfloat16
 
     def __init__(self, k_redist, v_redist):

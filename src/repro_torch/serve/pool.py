@@ -256,6 +256,11 @@ class PagePool:
     def live_page_counts(self) -> np.ndarray:
         return (self.page_table > 0).sum(axis=1).astype(np.int32)
 
+    def live_pages(self) -> np.ndarray:
+        """Physical page ids mapped by at least one slot (refcount > 0):
+        what the quality observer samples."""
+        return np.flatnonzero(self.refcount > 0)
+
     def bucket_pages(self, n_needed: int) -> int:
         return bucket_pow2(n_needed, self.pages_per_slot)
 

@@ -23,8 +23,10 @@ token streams and step counters match the reference engine's.
     victims (their written pages travel with the queue entry).
 
 The scheduler's state is host-side numpy; device tensors are built only
-at the step call sites.  The flight recorder and the quality observers
-of the reference are not ported yet.
+at the step call sites.  The flight recorder (``recorder=``) and the
+quality observer's pool sampling (``quality=``) run host-side between
+step calls, at the reference's hook sites: every hook that would build
+an args dict is guarded by ``recorder.enabled``.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import tokenizer as tok
+from repro_torch.obs.trace import NULL_RECORDER
 from repro_torch.serve import spec
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.pool import PagePool, bucket_pow2
@@ -86,13 +89,20 @@ class Scheduler:
                  metrics: Optional[ServeMetrics] = None,
                  prefix_sharing: bool = True, prefill_chunk: int = 32,
                  prefill_slots: int = 2, prefill_aging: float = 1.0,
-                 spec_mode: str = "off", spec_k: int = 4):
+                 spec_mode: str = "off", spec_k: int = 4,
+                 recorder=None, quality=None):
         self.pool = pool
         self.prefill = prefill_fn
         self.decode = decode_fn
         self.verify = verify_fn
         self.eos = eos
         self.metrics = metrics if metrics is not None else ServeMetrics()
+        # flight recorder (repro_torch.obs.trace): NULL_RECORDER = tracing
+        # off, every hook an immediate no-op; all recording is host-side,
+        # between step calls
+        self.rec = recorder if recorder is not None else NULL_RECORDER
+        self.quality = quality       # optional repro_torch.obs.quality observer
+        self._rids: dict = {}        # id(request) -> trace rid (submit order)
         self.prefix_sharing = prefix_sharing
         if prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
@@ -144,6 +154,10 @@ class Scheduler:
                 raise ValueError(
                     f"prompt of {need - 1} tokens exceeds slot capacity "
                     f"{self.pool.capacity - 1} (raise s_max)")
+        # trace rids in submit order (stable across preemption/requeue:
+        # keyed by request identity)
+        for req in requests:
+            self._rids.setdefault(id(req), len(self._rids))
         queue = collections.deque(
             _QEntry(req, int(arr)) for req, arr in
             sorted(zip(requests, arrivals), key=lambda p: p[1]))
@@ -166,7 +180,7 @@ class Scheduler:
         return list(requests)
 
     def _run_loop(self, queue, step_clock: int) -> None:
-        m = self.metrics
+        m, rec = self.metrics, self.rec
         while queue or any(self.slots):
             self._step = step_clock
             now = None
@@ -176,6 +190,10 @@ class Scheduler:
                     entry.arrive_step = step_clock
                     self._first[id(entry.req)] = {
                         "tok0": m.prefill_chunk_tokens, "own": 0}
+                    if rec.enabled:
+                        rid = self._rids[id(entry.req)]
+                        rec.instant(rid, "QUEUED", "SUBMITTED", step_clock)
+                        rec.begin(rid, "QUEUED", step_clock)
             self._admit(queue, step_clock)
             m.live_slots_peak = max(
                 m.live_slots_peak, sum(s is not None for s in self.slots))
@@ -185,6 +203,9 @@ class Scheduler:
                     continue
                 break
 
+            cow0 = self.pool.cow_count      # step-record COW delta baseline
+            # the step-record info of the chunks that ran (slots and
+            # buckets), or None
             did_prefill = self._prefill_chunk_step(step_clock)
             # n-gram drafts first (host-side, no pool effects), so the
             # page-backing pass can cover each slot's whole k-token write
@@ -196,6 +217,9 @@ class Scheduler:
                       if s is not None and not s.prefilling]
             # page-backing may have preempted (or finished) a drafted slot
             drafts = {i: d for i, d in drafts.items() if i in set(active)}
+            decode_ran = False
+            verify_k = None
+            bucket = 0
             if active:
                 counts = self.pool.live_page_counts()
                 bucket = self.pool.bucket_pages(max(int(counts[i])
@@ -211,8 +235,9 @@ class Scheduler:
                 else:
                     table = self.pool.table()[:, :bucket].contiguous()
                 if drafts:
-                    self._verify_step(active, drafts, table, bucket,
-                                      did_prefill)
+                    verify_k = self._verify_step(active, drafts, table,
+                                                 bucket, did_prefill,
+                                                 step_clock)
                 else:
                     nxt, new_kv = self.decode(
                         self._dev(self.last_tok)[:, None], self.pool.state(),
@@ -227,6 +252,25 @@ class Scheduler:
                     for i in active:
                         self.pos[i] += 1
                         self._post_token(i, int(outs[i]))
+                decode_ran = True
+            if active and not decode_ran:
+                m.decode_stall_steps += 1
+            if rec.enabled:
+                # one scheduler record per active step: what ran and what
+                # it cost
+                pf = did_prefill or {}
+                pf_slots = pf.get("slots", [])
+                rec.step_record(
+                    step_clock, decode_ran=decode_ran, slots=len(active),
+                    page_bucket=bucket if decode_ran else 0,
+                    verify_k=verify_k or 0,
+                    prefill_slots=pf_slots,
+                    prefill_slot=pf_slots[0] if pf_slots else None,
+                    chunk_bucket=pf.get("chunk_bucket", 0),
+                    prefill_page_bucket=pf.get("page_bucket", 0),
+                    cow=self.pool.cow_count - cow0)
+            if self.quality is not None:
+                self.quality.maybe_sample_pool(self.pool, step_clock)
             step_clock += 1
             live = {i: (int(self.pos[i]) if not s.prefilling else s.pre_pos)
                     for i, s in enumerate(self.slots) if s}
@@ -299,6 +343,11 @@ class Scheduler:
                     req.done = True
                     self.metrics.completed += 1
                     self._stamp_finish(req, entry.arrive_step, step_clock)
+                    if self.rec.enabled:
+                        rid = self._rids[id(req)]
+                        self.rec.end(rid, "QUEUED", step_clock)
+                        self.rec.instant(rid, "DECODING", "FINISHED",
+                                         step_clock, truncated=True)
                     continue
                 raise ValueError(
                     f"prompt of {len(ids)} tokens exceeds slot capacity "
@@ -341,6 +390,15 @@ class Scheduler:
                     pass
                 self.metrics.observe("queue_wait_steps",
                                      step_clock - entry.arrive_step)
+            if self.rec.enabled:
+                rid = self._rids[id(req)]
+                self.rec.end(rid, "QUEUED", step_clock)
+                self.rec.instant(rid, "PREFILLING", "ADMITTED", step_clock,
+                                 slot=slot, prompt_tokens=len(ids),
+                                 pages=self.pool.pages_needed(len(ids)),
+                                 shared_pages=n_share, replay=not fresh,
+                                 resume_from=resume_from or 0)
+                self.rec.begin(rid, "PREFILLING", step_clock, slot=slot)
             st.write_from = write_from
             # proposer corpus: prompt + every generated token (a resumed
             # request's last token is the next decode input — ids stop one
@@ -378,14 +436,15 @@ class Scheduler:
             return (remaining - self.prefill_aging * waited, st.seq)
         return sorted(cands, key=key)[: self.prefill_slots]
 
-    def _prefill_chunk_step(self, step_clock: int) -> bool:
+    def _prefill_chunk_step(self, step_clock: int) -> Optional[dict]:
         """Advance up to ``prefill_slots`` prefilling slots by one bucketed
         chunk each, in ONE call over a full-pool-width ``[n_slots, C]``
-        block.  Returns whether chunks ran."""
+        block.  Returns the step-record info (slots and buckets) when
+        chunks ran, else None."""
         cands = [i for i, s in enumerate(self.slots)
                  if s is not None and s.prefilling]
         if not cands:
-            return False
+            return None
         chosen = self._prefill_pick(cands, step_clock)
         m = self.metrics
         m.prefill_wait_steps_max = max(
@@ -429,9 +488,14 @@ class Scheduler:
             if first is not None:
                 first["own"] += n
             st.pre_pos += n
+            if self.rec.enabled:
+                self.rec.instant(self._rids[id(st.req)], "PREFILLING",
+                                 "CHUNK", step_clock, slot=j, tokens=n,
+                                 chunk_bucket=cb, page_bucket=pb,
+                                 done=st.pre_pos, total=len(st.ids))
             if st.pre_pos >= len(st.ids):
                 self._activate(j, int(outs[j, n - 1]), step_clock)
-        return True
+        return {"slots": sorted(ns), "chunk_bucket": cb, "page_bucket": pb}
 
     def _activate(self, slot: int, sampled: Optional[int],
                   step_clock: int) -> None:
@@ -441,7 +505,17 @@ class Scheduler:
         self.pos[slot] = len(st.ids)
         m = self.metrics
         m.prefills += 1
-        if not st.req.out_tokens:
+        fresh = not st.req.out_tokens
+        if self.rec.enabled:
+            rid = self._rids[id(st.req)]
+            self.rec.end(rid, "PREFILLING", step_clock)
+            # DECODING opens BEFORE the first token posts, so a one-token
+            # request's FINISHED lands inside an open DECODING span
+            self.rec.begin(rid, "DECODING", step_clock, slot=slot)
+            if fresh:
+                self.rec.instant(rid, "DECODING", "FIRST_TOKEN", step_clock,
+                                 ttft_steps=step_clock - st.arrive_step)
+        if fresh:
             ttft = time.perf_counter() - st.submit_t
             m.ttft_s.append(ttft)
             m.ttft_steps.append(step_clock - st.arrive_step)
@@ -482,13 +556,14 @@ class Scheduler:
                 drafts[i] = d
         return drafts
 
-    def _verify_step(self, active, drafts, table, bucket,
-                     did_prefill) -> None:
+    def _verify_step(self, active, drafts, table, bucket, did_prefill,
+                     step_clock: int) -> int:
         """One batched verify over the pool: every active slot's committed
         token + draft rides a ``[slot, k]`` block (k bucketed to pow2);
         greedy acceptance emits each slot's longest agreeing draft prefix
         plus the model's own next token.  Per-slot ``pos`` advances only
-        over emitted tokens; rejected page rows are overwritten later."""
+        over emitted tokens; rejected page rows are overwritten later.
+        Returns the k bucket."""
         m = self.metrics
         kb = bucket_pow2(1 + max(len(d) for d in drafts.values()),
                          self.spec_k)
@@ -520,6 +595,11 @@ class Scheduler:
             m.decode_steps_saved += acc
             if d:
                 m.observe("accepted_draft_len", acc)
+                if self.rec.enabled:
+                    self.rec.instant(self._rids[id(self.slots[i].req)],
+                                     "VERIFY", "VERIFY", step_clock,
+                                     slot=i, k_bucket=kb, proposed=len(d),
+                                     accepted=acc)
             # emitted stream = accepted draft prefix + the model's own
             # next token after it — exactly sequential greedy decode
             for t in outs[i, :acc + 1]:
@@ -527,6 +607,7 @@ class Scheduler:
                 self._post_token(i, int(t))
                 if self.slots[i] is None:
                     break                       # EOS / budget mid-block
+        return kb
 
     # -- paging / preemption --------------------------------------------------
 
@@ -573,6 +654,15 @@ class Scheduler:
             if valid > 0:
                 kept = self.pool.detach_prefix(slot, valid)
                 resume = (kept, st.pre_pos, st.write_from)
+        if self.rec.enabled:
+            rid = self._rids[id(st.req)]
+            phase = "PREFILLING" if st.prefilling else "DECODING"
+            self.rec.end(rid, phase, self._step, preempted=True)
+            self.rec.instant(rid, phase, "PREEMPTED", self._step, slot=slot,
+                             held_tokens=self._held_tokens(slot),
+                             kept_pages=len(resume[0]) if resume else 0)
+            # the request re-queues: its replay admission ends this span
+            self.rec.begin(rid, "QUEUED", self._step)
         if resume is None:
             self.pool.release(slot)
         self.slots[slot] = None
@@ -609,6 +699,11 @@ class Scheduler:
         st = self.slots[slot]
         st.req.done = True
         self._stamp_finish(st.req, st.arrive_step, self._step)
+        if self.rec.enabled:
+            rid = self._rids[id(st.req)]
+            self.rec.instant(rid, "DECODING", "FINISHED", self._step,
+                             tokens=len(st.req.out_tokens))
+            self.rec.end(rid, "DECODING", self._step)
         self.pool.release(slot)
         self.slots[slot] = None
         self.pos[slot] = 0

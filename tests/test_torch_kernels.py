@@ -148,6 +148,26 @@ def test_muxq_gemm_plain_bit_exact_vs_reference(m, k, n, bk):
     np.testing.assert_array_equal(yt.numpy(), yj)
 
 
+@pytest.mark.parametrize("m,k,n,bk,blocks", [(4, 1024, 64, 512, 1),
+                                             (9, 512, 40, 128, 2),
+                                             (20, 1536, 24, 512, 3)])
+def test_muxq_gemm_two_matmul_ref_is_a_second_oracle(m, k, n, bk, blocks):
+    """The literal paper form Y_body + (2^e - 1) Y_aux, full-range codes and
+    real scales: bit-equal to the reference's two-matmul oracle and to the
+    port's one-GEMM oracle (``muxq_gemm_ref``, the plain version)."""
+    from repro_torch.kernels import ref as tref
+    x, w, bs, sx, sw = _gemm_inputs(200 + m, m, k, n, bk, e=2,
+                                    n_out_blocks=blocks)
+    args = [torch.from_numpy(a) for a in (x, w, bs, sx, sw)]
+    two = tref.muxq_gemm_two_matmul_ref(*args, bk)
+    yj = np.asarray(jref.muxq_gemm_two_matmul_ref(
+        *(jnp.asarray(a) for a in (x, w, bs, sx, sw)), bk))
+    assert two.dtype == torch.float32
+    np.testing.assert_array_equal(two.numpy(), yj)
+    np.testing.assert_array_equal(two.numpy(),
+                                  tref.muxq_gemm_ref(*args, bk).numpy())
+
+
 # ---------------------------------------------------------------------------
 # Offline packing
 # ---------------------------------------------------------------------------

@@ -4,11 +4,12 @@ against the reference launcher (``repro.launch.serve``).
 Its flags are the reference's plus ``--device``.  The plumbing tests stub
 the engine, the quantizer and ``init_params`` at the launcher's module
 seam, as ``tests/test_launch_serve.py`` does for the reference, so no
-model compute runs; they cover the refusals of flags whose subsystems the
-port does not have (``--tp`` > 1, ``--trace-out``, ``--obs``).  One real
-``--device cpu`` run per backend serves the reduced gpt2, writes its
+model compute runs; they cover the refusals (``--tp`` > 1, which the port
+does not serve, among them) and the observability flags' plumbing.  One
+real ``--device cpu`` run per backend serves the reduced gpt2, writes its
 ``--json-out`` report and a ``--save-artifact`` bundle that the reference
-loads.
+loads; one more runs ``--trace-out`` and ``--obs`` and checks the trace
+file and the quality snapshot it writes.
 """
 import json
 import re
@@ -173,8 +174,7 @@ def test_pack_target_flag_reaches_quantizer(stubbed):
     (["--quant", "llm_int8", "--backend", "fused"], "llm_int8"),
     (["--tp", "2"], "item 9"),
     (["--tp", "0"], "--tp"),
-    (["--trace-out", "trace.json"], "item 7"),
-    (["--obs"], "item 7"),
+    (["--tp", "2", "--trace-out", "trace.json", "--obs"], "item 9"),
     (["--spec-mode", "medusa"], None),
 ])
 def test_refusals_serve_nothing(stubbed, argv, match):
@@ -221,3 +221,76 @@ def test_real_cpu_run_writes_report_and_a_bundle_the_reference_loads(
     else:
         assert "kv pages [int8]" in out
         assert len(art.smooth_factors) == 8 and not art.kernel_buffers
+
+
+def test_trace_and_obs_flags_reach_engine(stubbed, tmp_path, monkeypatch):
+    """--trace-out hands the engine a TraceRecorder and writes its Chrome
+    trace; --obs hands it a QualityObserver, installs it on the activation
+    seam while the model is quantized and served, and uninstalls it after."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.obs.quality import QualityObserver
+    from repro_torch.obs.trace import TraceRecorder, chrome_errors
+
+    seen = {}
+
+    def fake_quantize_model(cfg, params, calib, policy, **kw):
+        seen["installed"] = dispatch.quality_observer()
+        return "ARTIFACT"
+
+    monkeypatch.setattr(L, "quantize_model", fake_quantize_model)
+    trace, out = tmp_path / "t" / "trace.json", tmp_path / "m.json"
+    eng = _engine(["--quant", "muxq", "--backend", "fused", "--device", "cpu",
+                   "--trace-out", str(trace), "--obs", "--json-out", str(out)])
+    assert isinstance(eng.kw["recorder"], TraceRecorder)
+    assert isinstance(eng.kw["quality"], QualityObserver)
+    assert seen["installed"] is eng.kw["quality"]
+    assert dispatch.quality_observer() is None
+    assert chrome_errors(trace) == []
+    doc = json.loads(out.read_text())
+    assert doc["quality"] == {"pool_samples": 0, "sites": {}}
+    plain = _StubEngine.calls = []
+    _engine(["--quant", "fp", "--device", "cpu"])
+    assert plain[0].kw["recorder"] is None and plain[0].kw["quality"] is None
+
+
+def test_real_cpu_run_with_trace_and_obs(tmp_path, capsys):
+    """A real traced, observed run: the Chrome trace is well formed, its
+    lifecycle is, every request finished in it, and the quality snapshot
+    of the int8 pool lands in --json-out."""
+    from repro_torch.obs.trace import chrome_errors, lifecycle_errors
+
+    trace, report = tmp_path / "trace.json", tmp_path / "serve.json"
+    assert L.main(["--quant", "muxq", "--backend", "fused", "--device", "cpu",
+                   "--max-new", "9", "--trace-out", str(trace), "--obs",
+                   "--json-out", str(report)]) == 0
+    out = capsys.readouterr().out
+    assert "trace:" in out and "obs:" in out
+    assert chrome_errors(trace) == []
+    evs = json.loads(trace.read_text())["traceEvents"]
+    assert sum(e["name"] == "FINISHED" for e in evs) == 2
+    assert any(e["name"] == "COMPILE" for e in evs)
+    doc = json.loads(report.read_text())
+    q = doc["quality"]
+    assert q["pool_samples"] >= 1
+    assert set(q["sites"]) == {"kv/k", "kv/v"}     # no eager site in serving
+    assert q["sites"]["kv/k"]["elements"] > 0
+    # the events as the recorder holds them obey the lifecycle invariants
+    ph = {"B": "B", "E": "E", "i": "I"}
+    events = [{"kind": ph[e["ph"]], "rid": e["pid"] - 1, "name": e["name"],
+               "phase": e["name"] if e["ph"] in "BE" else None,
+               "step": e["args"].get("step"), "args": e["args"]}
+              for e in evs if e["ph"] != "M"]
+    assert lifecycle_errors(events,
+                            decode_steps=doc["report"]["decode_steps"]) == []
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen2.5-14b", "qwen1.5-110b",
+                                  "internvl2-2b"])
+def test_real_cpu_run_for_every_dense_arch(tmp_path, arch):
+    """``--arch`` takes the reference's other dense decoders: the reduced
+    config initializes, quantizes and serves on the fused path."""
+    report = tmp_path / "serve.json"
+    assert L.main(["--arch", arch, "--quant", "muxq", "--backend", "fused",
+                   "--device", "cpu", "--max-new", "3", "--json-out",
+                   str(report)]) == 0
+    assert json.loads(report.read_text())["report"]["tokens_out"] == 6

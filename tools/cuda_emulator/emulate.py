@@ -152,8 +152,9 @@ def patch(n_sm: int = 132, block_order: str = "forward"):
 
 
 def smoke() -> int:
-    """``chip_smoke.py`` on the CPU: reduced configs, flash at s 160, the
-    kernels emulated, no timings.  Returns its exit code."""
+    """``chip_smoke.py`` on the CPU: reduced configs (gemma2's paged rows 24
+    positions past its reduced window of 8), flash at s 160, the kernels
+    emulated, no timings.  Returns its exit code."""
     import torch
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as FA
@@ -169,6 +170,11 @@ def smoke() -> int:
             ('torch.device("cuda")', 'torch.device("cpu")'),
             ('get_config("gpt2-small")', 'get_config("gpt2-small", reduced=True)'),
             ('get_config("qwen2-0.5b")', 'get_config("qwen2-0.5b", reduced=True)'),
+            ('get_config("qwen2.5-14b")', 'get_config("qwen2.5-14b", reduced=True)'),
+            ('get_config("gemma2-9b")', 'get_config("gemma2-9b", reduced=True)'),
+            ("wide = {a: get_config(a) for a in WIDE_ARCHS}",
+             "wide = {a: get_config(a, reduced=True) for a in WIDE_ARCHS}"),
+            ("WINDOW_SPAN = 600 ", "WINDOW_SPAN = 24 "),
             ("fb, fs, fh, fkv, fdh = 1, 2048, 14, 2, 64",
              "fb, fs, fh, fkv, fdh = 1, 160, 14, 2, 64"),
             ("activities=[ProfilerActivity.CPU,\n                             "
@@ -181,6 +187,8 @@ def smoke() -> int:
     torch.cuda.is_available = lambda: True
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.empty_cache = lambda: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
     torch.cuda.get_device_name = lambda *a: "cpu (emulated kernels)"
     torch.cuda.device_count = lambda: 1
     kbuild.build = lambda *a, **k: {}

@@ -3,7 +3,8 @@
 (phase 4), for the current tree beside an earlier commit's.
 
     python3 tools/serve_timing.py compare DIR [--repeats N] [--rounds R]
-    python3 tools/serve_timing.py serve [--repeats N]
+    python3 tools/serve_timing.py tracecost [--repeats N] [--rounds R]
+    python3 tools/serve_timing.py serve [--repeats N] [--trace]
 
 ``serve`` builds the artifact of ``chip_smoke.py``'s phase 4 (gpt2-small
 at full width, random weights from seed 0 with 8 LayerNorm gain channels
@@ -13,7 +14,10 @@ loads the kernels, as ``chip_smoke.py``'s earlier phases do before its
 serve), then ``--repeats`` times, each on a fresh ``ServeEngine`` so that
 every run does the same work (no prefix hits).  It times
 ``engine.generate`` alone, synchronized, and imports ``repro_torch`` from
-``PYTHONPATH``.
+``PYTHONPATH``.  ``--trace`` gives every engine a ``TraceRecorder`` and a
+``QualityObserver`` (installed on the activation seam too), as the
+launcher's ``--trace-out`` and ``--obs`` do, and checks that the streams
+do not change.
 
 ``compare DIR`` runs ``serve`` in child processes in turns, earlier,
 current, current, earlier, ``--rounds`` times: ``DIR`` is a checkout of an
@@ -22,6 +26,12 @@ earlier commit, unpacked with ``git archive`` into a directory that
 the median and range of each process's serves and, per tree, the median
 of all its serves, beside the card's name and power limit, and writes
 everything to ``chiprun_out/serve_timing.json``.
+
+``tracecost`` runs ``serve`` on the current tree in child processes in
+turns, untraced, traced, traced, untraced, ``--rounds`` times, and prints
+the same medians per variant: what the flight recorder and the quality
+observer cost the serve on the host's clock
+(``chiprun_out/serve_tracecost.json``).
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -51,14 +62,17 @@ def smi_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def serve(repeats: int) -> dict:
+def serve(repeats: int, trace: bool = False) -> dict:
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.core.context import CollectCtx
     from repro_torch.core.muxq import QuantConfig
     from repro_torch.core.policy import SitePolicy
+    from repro_torch.kernels import dispatch
     from repro_torch.models import transformer as T
+    from repro_torch.obs.quality import QualityObserver
+    from repro_torch.obs.trace import TraceRecorder
     from repro_torch.quantize import build_artifact
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.pool import PagePool
@@ -91,36 +105,49 @@ def serve(repeats: int) -> dict:
         backend="fused", weight_granularity="per_channel"))
     art = build_artifact(cfg, params, policy, collect.stats.masks())
 
-    secs, streams = [], None
+    secs, streams, events = [], None, []
     for _ in range(1 + repeats):        # the first run is the warm-up
+        obs = dict(recorder=TraceRecorder(),
+                   quality=QualityObserver()) if trace else {}
         engine = ServeEngine(cfg, art, max_batch=4, s_max=256,
-                             prefill_chunk=32, kv_mode="int8", device=dev)
+                             prefill_chunk=32, kv_mode="int8", device=dev,
+                             **obs)
         reqs = [Request(p, max_new_tokens=16) for p in PROMPTS]
+        prev = dispatch.set_quality_observer(obs.get("quality"))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.generate(reqs)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        dispatch.set_quality_observer(prev)
+        if trace:
+            events.append(len(obs["recorder"].events))
         got = [r.out_tokens for r in reqs]
         if streams is not None and got != streams:
             raise AssertionError("a repeat served other tokens than the first")
         streams = got
     rep = engine.metrics.report()
-    return {"warmup_s": secs[0], "repeat_s": secs[1:],
+    return {"warmup_s": secs[0], "repeat_s": secs[1:], "trace": trace,
+            "events": events, "streams": streams,
             "tokens_out": rep["tokens_out"], "decode_steps": rep["decode_steps"],
             "prefill_steps": rep["prefill_steps"]}
 
 
-def compare(earlier: Path, repeats: int, rounds: int) -> None:
+def compare(earlier: Optional[Path], repeats: int, rounds: int) -> None:
+    """Child processes in turns: the earlier tree and the current one, or
+    (``earlier`` None) the current tree untraced and traced."""
     card = smi_line()
     runs = []
-    order = (("earlier", earlier), ("current", ROOT), ("current", ROOT),
-             ("earlier", earlier)) * rounds
-    for label, tree in order:
+    if earlier is None:
+        first, second = ("untraced", ROOT, []), ("traced", ROOT, ["--trace"])
+    else:
+        first, second = ("earlier", earlier, []), ("current", ROOT, [])
+    order = (first, second, second, first) * rounds
+    for label, tree, extra in order:
         env = {**os.environ, "PYTHONPATH": str(tree / "src")}
         out = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "serve",
-             "--repeats", str(repeats)], env=env, capture_output=True,
+             "--repeats", str(repeats), *extra], env=env, capture_output=True,
             text=True, timeout=900)
         if out.returncode != 0:
             sys.stderr.write(out.stderr)
@@ -133,26 +160,35 @@ def compare(earlier: Path, repeats: int, rounds: int) -> None:
               f"(range {min(rs):.4f}-{max(rs):.4f}); {r['tokens_out']} "
               f"tokens, {r['decode_steps']} decode + {r['prefill_steps']} "
               f"prefill steps  [{card}]", flush=True)
-    for label in ("earlier", "current"):
+    streams = {json.dumps(r["streams"]) for r in runs}
+    if earlier is None and len(streams) != 1:
+        raise SystemExit("serve_timing: tracing changed the streams")
+    for label in (first[0], second[0]):
         rs = [t for r in runs if r["tree"] == label for t in r["repeat_s"]]
         print(f"{label}, all {len(rs)} serves: median "
               f"{statistics.median(rs):.4f} s (range {min(rs):.4f}-"
               f"{max(rs):.4f})  [{card}]", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "serve_timing.json").write_text(
+    name = "serve_timing.json" if earlier else "serve_tracecost.json"
+    (out_dir / name).write_text(
         json.dumps({"card": card, "runs": runs}, indent=1))
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("mode", choices=("compare", "serve"))
+    ap.add_argument("mode", choices=("compare", "tracecost", "serve"))
     ap.add_argument("earlier", nargs="?", type=Path)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--trace", action="store_true",
+                    help="serve with the flight recorder and the quality "
+                         "observer on")
     args = ap.parse_args()
     if args.mode == "serve":
-        print(json.dumps(serve(args.repeats)))
+        print(json.dumps(serve(args.repeats, args.trace)))
+    elif args.mode == "tracecost":
+        compare(None, args.repeats, args.rounds)
     elif args.earlier is None:
         ap.error("compare needs the earlier checkout's directory")
     else:
