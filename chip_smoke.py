@@ -93,12 +93,33 @@ its seconds):
    embedding), 2 of 42 layers (one local/global period): the same flow on
    int4 pages with n-gram speculation (k = 4), gates (a), (b) and (b') on
    a verify block.
-13. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
+13. The MoE family's expert sites at full width: ``dispatch.fused_emm``
+   (one ``rowwise_quantize`` over the E*C rows, one ``muxq_gemm`` per
+   expert) at llama4-scout's and dbrx's ``moe_up`` / ``moe_down`` (E 16;
+   K up to 10752, N up to 21504) and C 8 (decode) and 128 (a prefill
+   step of 4 slots x 32 tokens), bit for bit against the plain per-expert
+   path, on per-expert k-major buffers built on the card; 16 x the GEMM
+   (and its plain version) and the whole ``fused_emm`` timed beside 16 x
+   ``torch._int_mm``.
+14. Serve llama4-scout-17b-a16e at full width (d 5120, 40/8 heads, d_ff
+   8192, vocab 202048, untied head, 16 experts top-1 and the shared
+   expert), 2 of 48 layers: phase 11's flow and gates (a), (b), (b') on
+   int8 pages, the expert choices of gate (a) equal on the kernel and
+   plain paths, the launches of one decode step counted (one quantize a
+   site, one GEMM a dense site and an expert), the tokens each expert was
+   routed, the peak device memory.
+15. Serve dbrx-132b at full width (d 6144, 48/8 heads, d_ff 10752, vocab
+   100352, 16 experts top-4), 1 of 40 layers: the same on int4 pages with
+   n-gram speculation (k = 4), the gates on a verify block; served with
+   the residual branches scaled down and the head read as the
+   embedding's transpose, so that the greedy stream repeats and drafts
+   match.
+16. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
 ``launches`` in the JSON line counts the launches of the full-width
-serving runs of phases 5, 8, 10, 11 and 12 (each run starts from zero
-counts); the traced serve of phase 6 and the launcher's reduced-width run
+serving runs of phases 5, 8, 10, 11, 12, 14 and 15 (each run starts from
+zero counts); the traced serve of phase 6 and the launcher's reduced-width run
 of phase 9 keep their own counts in ``chip_smoke.json``.  ``flash_attention`` is on no
 serving path and has 0.  It imports nothing of JAX or of the
 reference package.  Details of every measurement also go to
@@ -143,7 +164,8 @@ FLASH_F32_ATOL = 2e-4   # f32 flash attention over 2048 keys (sum order); bf16
                         # so the same atol plus one bf16 ulp
 SERVE_BRANCH_SCALE = 2e-3   # qwen2's served weights: attention and MLP
                             # output projections scaled down (phase 10);
-                            # gemma2's sandwich post-norm gains (phase 12)
+                            # gemma2's sandwich post-norm gains (phase 12);
+                            # dbrx's attn_out / moe_down scales (phase 15)
 VERIFY_RTOL = 1e-3  # in-situ verify logits on int4 pages with fp weights,
                     # paged kernel vs plain, relative to max |logits|: the
                     # attention sums' order differs, and an ulp may move an
@@ -169,6 +191,11 @@ WINDOW_SPAN = 600           # gemma2's paged rows sit up to this far past its
                             # window (positions 4100-4700 at window 4096)
 Q14_LAYERS = 4              # qwen2.5-14b served at 4 of its 48 layers
 G9_LAYERS = 2               # gemma2-9b at 2 of 42: one local/global period
+# the MoE family (phases 13-15): the expert sites at full width, then
+# llama4-scout and dbrx served at full width, depth cut
+MOE_ARCHS = ("llama4-scout-17b-a16e", "dbrx-132b")
+MOE_L4_LAYERS = 2           # llama4-scout-17b-a16e at 2 of its 48 layers
+MOE_DBRX_LAYERS = 1         # dbrx-132b at 1 of its 40 layers
 
 
 def smi_line() -> str:
@@ -298,6 +325,7 @@ def main() -> int:
     from repro_torch.kernels import quantize as RQ
     from repro_torch.kernels import ref as kref
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
     from repro_torch.models.common import cross_entropy
     from repro_torch.obs.quality import QualityObserver
@@ -1803,6 +1831,23 @@ def main() -> int:
             PA.paged_attention_plain = plain
         return lp_[..., :c.vocab_size], ld_[..., :c.vocab_size]
 
+    class ExpertLog:
+        """Records the router's top-k choices (``moe._top_k``) while
+        installed; a dense model records none."""
+
+        def __enter__(self):
+            self.picks, self.orig = [], MOE._top_k
+
+            def spy(probs, k):
+                vals, idx = self.orig(probs, k)
+                self.picks.append(idx)
+                return vals, idx
+            MOE._top_k = spy
+            return self
+
+        def __exit__(self, *exc):
+            MOE._top_k = self.orig
+
     def in_situ(c, params_, ctx_, mode, kv_calib, label, verify=False):
         """(a) the fused kernels against their plain versions, everything
         else shared: bit-equal logits.  At fp weights, the paged kernel
@@ -1812,13 +1857,24 @@ def main() -> int:
         flips a code on a rounding boundary and later layers carry the
         flip, within NUDGE_FACTOR x the spread of the plain version
         against itself with every attention output nudged one ulp."""
-        ka = step_logits(c, params_, ctx_, mode, kv_calib, verify=verify)
-        kr = step_logits(c, params_, ctx_, mode, kv_calib, fused="ref",
-                         verify=verify)
+        with ExpertLog() as la:
+            ka = step_logits(c, params_, ctx_, mode, kv_calib, verify=verify)
+        with ExpertLog() as lr:
+            kr = step_logits(c, params_, ctx_, mode, kv_calib, fused="ref",
+                             verify=verify)
         if not all(torch.isfinite(x).all() and torch.equal(x, y)
                    for x, y in zip(ka, kr)):
             raise AssertionError(f"{label} (a): the fused kernels change the "
                                  "logits in situ")
+        if len(la.picks) != len(lr.picks) or not all(
+                torch.equal(x, y) for x, y in zip(la.picks, lr.picks)):
+            raise AssertionError(f"{label} (a): the kernel path routes a "
+                                 "token to other experts than the plain path")
+        n_picks = sum(x.numel() for x in la.picks)
+        if n_picks:
+            print(f"logits {label}: (a) {n_picks} expert choices ({c.top_k} a "
+                  f"token, every layer) equal on the kernel and plain paths",
+                  flush=True)
 
         def gap(xs, ys):
             return max(float((x - y).abs().max()) for x, y in zip(xs, ys))
@@ -1850,7 +1906,7 @@ def main() -> int:
                                  f"pages {err_q} exceeds {NUDGE_FACTOR} x the "
                                  f"1-ulp spread {max(spreads)}")
         return {"fp_weights_f32_pages_max_abs_err": err_b,
-                "logits_scale": scales,
+                "logits_scale": scales, "expert_choices_equal": n_picks,
                 f"fp_weights_{mode}_pages_max_abs_err": err_q,
                 "nudge_spreads": spreads}
 
@@ -1928,7 +1984,223 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("serve gemma2-9b")
 
-    # -- 13. result lines ---------------------------------------------------------
+    # -- 13. the MoE expert sites at full width -----------------------------------
+    # dispatch.fused_emm at llama4-scout's and dbrx's expert sites: E 16
+    # experts of C rows each (decode: 4 tokens in one flat group, the
+    # dropless pad of 8; prefill: 4 slots x a 32-token chunk, one group a
+    # slot, folded into C = 4 x 32), on per-expert buffers built on the
+    # card; one quantize over the E*C rows, one GEMM per expert
+    moe_wide = {a: get_config(a) for a in MOE_ARCHS}
+
+    def device_experts(k, n, n_e, seed):
+        """A per-expert site's served buffer built on the card: the
+        channel map of 8 outlier channels at e = 2, shared by the experts,
+        random k-major int8 slabs W^T [E, n, K_pad] and scales [E, 1, n]."""
+        g_ = torch.Generator().manual_seed(seed)
+        mask = np.zeros(k, bool)
+        mask[torch.randperm(k, generator=g_)[:8].numpy()] = True
+        meta = ops.prepare_weights(np.zeros((k, 1), np.float32), mask, 2,
+                                   bk=512)
+        k_pad = meta.gather_idx.shape[0]
+        gd = torch.Generator(device=dev).manual_seed(seed)
+        wt = torch.randint(-127, 128, (n_e, n, k_pad), generator=gd,
+                           device=dev, dtype=torch.int8)
+        sw = torch.rand(n_e, 1, n, generator=gd, device=dev) * 1e-3 + 1e-4
+        return mask, {"w_int": wt.transpose(1, 2), "sw": sw,
+                      "block_scale": meta.block_scale.to(dev),
+                      "gather_idx": meta.gather_idx.to(dev),
+                      "in_scale": meta.in_scale.to(dev)}
+
+    n_expert_sites = 0
+    for arch, c in moe_wide.items():
+        n_e = c.n_experts
+        cs = (MOE._capacity(c, 4), 4 * MOE._capacity(c, 32))
+        for base, (k, n) in (("moe_up", (c.d_model, 2 * c.d_ff)),
+                             ("moe_down", (c.d_ff, c.d_model))):
+            mask, buf = device_experts(k, n, n_e, 500 + n_expert_sites)
+            n_expert_sites += 1
+            k_pad = buf["w_int"].shape[1]
+            mws = [dispatch.as_muxq_weights(
+                {**buf, "w_int": buf["w_int"][e], "sw": buf["sw"][e]})
+                for e in range(n_e)]
+            for cap in cs:
+                x = torch.randn(n_e, cap, k, generator=gen).to(dev)
+                x[..., torch.from_numpy(mask)] *= 40.0
+                yk = dispatch.fused_emm(x, buf)
+                prev = dispatch.set_fused_impl("ref")
+                try:
+                    yp = dispatch.fused_emm(x, buf)
+                finally:
+                    dispatch.set_fused_impl(prev)
+                torch.cuda.synchronize()
+                if not (torch.isfinite(yk).all() and torch.equal(yk, yp)):
+                    raise AssertionError(
+                        f"fused_emm {arch} {base} E={n_e} C={cap}: not "
+                        f"bit-equal to the plain per-expert path (max abs "
+                        f"err {float((yk - yp).abs().max())})")
+                record("rowwise_quantize", site=f"{arch} {base} experts",
+                       m=n_e * cap, k=k, k_pad=k_pad, max_abs_err=0.0)
+                record("muxq_gemm", site=f"{arch} {base} experts", m=cap,
+                       experts=n_e, k_pad=k_pad, n=n, max_abs_err=0.0)
+                xq, sxq = RQ.rowwise_quantize(
+                    x.reshape(n_e * cap, k), 8, gather_idx=buf["gather_idx"],
+                    in_scale=buf["in_scale"])
+                xq_pad = [padded_rows(xq[e * cap:(e + 1) * cap])
+                          for e in range(n_e)]   # outside the timed calls
+
+                def gemms(xq=xq, sxq=sxq, mws=mws, cap=cap):
+                    return [G.muxq_gemm(xq[e * cap:(e + 1) * cap], mw.w_int,
+                                        mw.block_scale,
+                                        sxq[e * cap:(e + 1) * cap], mw.sw,
+                                        bk=mw.bk)
+                            for e, mw in enumerate(mws)]
+
+                def plains(xq=xq, sxq=sxq, mws=mws, cap=cap):
+                    return [G.muxq_gemm_plain(
+                        xq[e * cap:(e + 1) * cap], mw.w_int, mw.block_scale,
+                        sxq[e * cap:(e + 1) * cap], mw.sw, mw.bk)
+                        for e, mw in enumerate(mws)]
+
+                def int_mms(xq_pad=xq_pad, mws=mws):
+                    return [torch._int_mm(xe, mw.w_int)
+                            for xe, mw in zip(xq_pad, mws)]
+                row = {"kernel": "muxq_gemm", "model": arch, "site": base,
+                       "experts": n_e, "m": cap, "k_pad": k_pad, "n": n}
+                row["ms"], row["spread_ms"] = time_ms(torch, gemms, flush)
+                row["emm_ms"], _ = time_ms(
+                    torch, lambda x=x, buf=buf: dispatch.fused_emm(x, buf),
+                    flush)
+                row["plain_ms"] = time_ms(torch, plains, flush, iters=5)[0]
+                row["int_mm_ms"] = maybe_time(torch, int_mms, flush)
+                row["bound_ms"], row["bound_by"] = bound(
+                    n_e * (cap * k_pad + k_pad * n + 4 * (k_pad // 512 + cap
+                                                          + n)
+                           + 4 * cap * n), 2 * n_e * cap * n * k_pad,
+                    INT8_OPS_S)
+                row["weight_stream_ms"] = n_e * k_pad * n / HBM_BYTES_S * 1e3
+                report["timings"].append(row)
+                print(f"experts {arch} {base} E={n_e} C={cap} K={k} "
+                      f"K_pad={k_pad} N={n}: fused_emm bit-equal to the plain "
+                      f"per-expert path; {n_e} x muxq_gemm {row['ms']:.4f} ms "
+                      f"(spread {row['spread_ms'][0]:.4f}-"
+                      f"{row['spread_ms'][1]:.4f}; plain {row['plain_ms']:.4f}"
+                      f"), fused_emm (quantize + "
+                      f"{n_e} GEMMs + stack) {row['emm_ms']:.4f} ms, {n_e} x "
+                      f"torch._int_mm {row['int_mm_ms']} ms (M padded to "
+                      f"{max(cap, INT_MM_ROWS)}), bound {row['bound_ms']:.4f} "
+                      f"ms ({row['bound_by']}; the weight stream alone "
+                      f"{row['weight_stream_ms']:.4f})  [{card}]", flush=True)
+            del buf, mws
+    torch.cuda.empty_cache()
+    print(f"kernel check: fused_emm bit-exact at {n_expert_sites} expert "
+          f"sites of {len(moe_wide)} configs x C in decode/prefill", flush=True)
+    phases.done("MoE expert sites")
+
+    def decode_launches(c, params_, ctx_, mode, kv_calib):
+        """The kernel launches of one decode step of the in-situ 2-slot pool
+        (its prefill chunk not counted)."""
+        toks_, block_ = ctoks[c.name]
+        pool = PagePool(c, 2, 64, page_size=ps, mode=mode, dtype=torch.float32,
+                        kv_calib=kv_calib, device=dev)
+        with torch.no_grad():
+            T.prefill_chunk_paged(c, params_, toks_, pool.kv, cal_table, zero2,
+                                  zero2, full32, ctx_)
+            torch.cuda.synchronize()
+            reset_counts()
+            T.decode_step_paged(c, params_, block_[:, :1], pool.kv, cal_table,
+                                full32, ctx_)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        n_shared = 2 if c.shared_expert else 0
+        want = {"rowwise_quantize": c.n_layers * (4 + n_shared),
+                "muxq_gemm": c.n_layers * (2 + 2 * c.n_experts + n_shared)}
+        for key, n_ in want.items():
+            if counts[key] != n_:
+                raise AssertionError(f"{c.name}: one decode step launched "
+                                     f"{counts[key]} {key}, not {n_}")
+        return {k_: v_ for k_, v_ in counts.items() if v_}
+
+    def moe_serve(c, mode, spec, prompts, label):
+        """Seeded weights at full width and cut depth, calibrated, fused
+        MUXQ on every site (the expert sites included), the in-situ gates,
+        then 4 requests x 16 tokens; prints the tokens each expert was
+        routed (padding rows included), the launches of one decode step
+        and the peak device memory."""
+        torch.cuda.reset_peak_memory_stats()
+        params_, art_, calib_ = wide_artifact(c, label)
+        kw = dict(spec_mode="ngram", spec_k=4) if spec else {}
+        eng = ServeEngine(c, art_, max_batch=4, s_max=256, prefill_chunk=32,
+                          kv_mode=mode, device=dev, **kw)
+        for site in ("layer0/moe_up", "layer0/moe_down"):
+            if eng.ctx.kernel_buffers[site]["w_int"].shape[0] != c.n_experts:
+                raise AssertionError(f"{label}: {site} is not per expert")
+        gates = in_situ(c, eng.params, eng.ctx, mode,
+                        calib_ if mode == "int4" else None, label,
+                        verify=spec)
+        step_launches = decode_launches(c, eng.params, eng.ctx, mode,
+                                        calib_ if mode == "int4" else None)
+        if spec:
+            # served with the residual branches' output projections scaled
+            # by SERVE_BRANCH_SCALE (their packed weight scales) and the
+            # head read as the embedding's transpose: the residual stream
+            # then follows the embedding, the greedy stream repeats its
+            # token and n-gram drafts match (the untied random head maps
+            # a token to an unrelated one); the kernels' paths unchanged
+            for site, buf in eng.ctx.kernel_buffers.items():
+                if site.endswith(("attn_out", "moe_down")):
+                    buf["sw"].mul_(SERVE_BRANCH_SCALE)
+            eng.params["lm_head"] = eng.params["embed"].T
+        with ExpertLog() as log:
+            reqs, rep, launches, secs = serve(eng, prompts, 16, label)
+        routed = sum(torch.bincount(x.reshape(-1), minlength=c.n_experts)
+                     for x in log.picks).tolist()
+        for key in ("rowwise_quantize", "muxq_gemm", f"paged_attention[{mode}]"):
+            if launches[key] <= 0:
+                raise AssertionError(f"{label} serve never launched {key}: "
+                                     f"{launches}")
+        if sum(1 for r_ in routed if r_) < 2:
+            raise AssertionError(f"{label}: fewer than two experts received "
+                                 f"tokens {routed}")
+        if spec and rep["spec_verify_steps"] <= 0:
+            raise AssertionError(f"{label}: the speculative verify step "
+                                 "never ran")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = rep["decode_steps"] + rep["prefill_steps"]
+        print(f"{label} serve: {rep['decode_steps']} decode steps "
+              f"({rep['spec_verify_steps']} verify, {rep['spec_accepted']} of "
+              f"{rep['spec_proposed']} drafts accepted), "
+              f"{rep['prefill_steps']} prefill steps in {secs:.3f} s; tokens "
+              f"routed to each expert over the serve's layers (padding rows "
+              f"included) {routed}; one decode step launches {step_launches}; "
+              f"peak device memory {peak:.2f} GiB  [{card}]", flush=True)
+        out = {"layers": c.n_layers, "seconds": secs, "launches": launches,
+               "steps": steps, "decode_step_launches": step_launches,
+               "tokens_per_expert": routed, "peak_gib": peak, **gates,
+               "report": {k_: v_ for k_, v_ in rep.items()
+                          if k_ != "decode_buckets"},
+               "streams": [r.out_tokens for r in reqs]}
+        return out, launches
+
+    # -- 14. llama4-scout-17b-a16e: 16 experts top-1 + shared, int8 pages --------
+    l4 = get_config("llama4-scout-17b-a16e").replace(n_layers=MOE_L4_LAYERS)
+    report["serve_llama4_scout"], ll4 = moe_serve(
+        l4, "int8", False, wprompts,
+        f"llama4-scout-17b-a16e int8 ({MOE_L4_LAYERS} of 48 layers, full width)")
+    main_runs["llama4-scout-17b-a16e int8"] = ll4
+    torch.cuda.empty_cache()
+    phases.done("serve llama4-scout-17b-a16e")
+
+    # -- 15. dbrx-132b: 16 experts top-4, int4 pages + ngram ---------------------
+    db = get_config("dbrx-132b").replace(n_layers=MOE_DBRX_LAYERS)
+    report["serve_dbrx"], ldb = moe_serve(
+        db, "int4", True, qprompts,
+        f"dbrx-132b int4 + ngram spec ({MOE_DBRX_LAYERS} of 40 layers, full "
+        "width)")
+    main_runs["dbrx-132b int4 spec"] = ldb
+    torch.cuda.empty_cache()
+    phases.done("serve dbrx-132b")
+
+    # -- 16. result lines ---------------------------------------------------------
     pa_src = ("src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:161")
     sources = {"rowwise_quantize": ("src/repro_torch/csrc/rowwise_quantize.cu",

@@ -2,9 +2,13 @@
 
 Counterpart of ``repro/core/context.py``.  Every projection site in
 ``repro_torch.models`` runs as ``ctx(name, x, w)``, with eager site names
-``layer{i}/attn_qkv`` etc.  Weight leaves arrive raw: a plain tensor
-(quantize at use, the paper's fake-quant protocol), or a prequantized
-``{"q": int8, "s": f32}`` dict (``repro_torch.core.prequant``).
+``layer{i}/attn_qkv`` etc.; the MoE expert sites run as
+``ctx.emm(name, x, w)``: x [e, c, d] @ w [e, d, f] -> [e, c, f], the
+site's math per expert, with per-expert weight scales and one outlier
+mask and smoothing divisor shared by every expert.  Weight leaves arrive
+raw: a plain tensor (quantize at use, the paper's fake-quant protocol),
+or a prequantized ``{"q": int8, "s": f32}`` dict
+(``repro_torch.core.prequant``).
 
   FpCtx      — plain matmul.
   CollectCtx — records per-channel activation stats (calibration pass).
@@ -23,8 +27,7 @@ s*W on a raw weight; a prequantized or packed weight already holds Q(s*W),
 so a smooth-method site with such a weight and no factor raises.
 An installed quality observer (``dispatch.set_quality_observer``) sees
 every quantized site's activation, as the reference's eager path does;
-the serving engine suspends it around its step calls.  The MoE
-per-expert matmul joins with its family (ROADMAP Queue 1, item 8).
+the serving engine suspends it around its step calls.
 """
 from __future__ import annotations
 
@@ -66,9 +69,19 @@ def _prequant_matmul(x: torch.Tensor, w, cfg: QuantConfig, mask=None) -> torch.T
     return (yi.float() * sx * w["s"]).to(x.dtype)
 
 
+def _expert_w(w, e: int):
+    """Expert ``e``'s slice of a per-expert weight leaf (either form)."""
+    if _is_prequant(w):
+        return {"q": w["q"][e], "s": w["s"][e]}
+    return w[e]
+
+
 class FpCtx:
     def __call__(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
         return x @ _dense_w(w, x.dtype)
+
+    def emm(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
+        return torch.bmm(x, _dense_w(w, x.dtype))
 
 
 class CollectCtx:
@@ -80,6 +93,13 @@ class CollectCtx:
     def __call__(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
         self.stats.update(name, x)
         return x @ _dense_w(w, x.dtype)
+
+    def emm(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
+        """Records the whole [e, c, d] dispatch buffer, its zero padding
+        rows included, as the reference does (the count-weighted
+        ``absmean`` counts them)."""
+        self.stats.update(name, x.reshape(-1, x.shape[-1]))
+        return torch.bmm(x, _dense_w(w, x.dtype))
 
 
 def _on(arrays, device, dtype=None) -> Dict[str, torch.Tensor]:
@@ -127,8 +147,19 @@ class QuantCtx:
         if backend == "fp":
             return x @ _dense_w(w, x.dtype)
         if backend == "fused":
-            return self._fused(name, x, cfg)
+            return self._fused(name, x, cfg, dispatch.fused_matmul)
         return self._fake(name, x, w, cfg)
+
+    def emm(self, name: str, x: torch.Tensor, w) -> torch.Tensor:
+        """Per-expert site: x [e, c, d] @ w [e, d, f] -> [e, c, f]."""
+        cfg = self.policy.resolve(name)
+        backend = dispatch.site_backend(cfg)
+        self.backend_log[name] = backend
+        if backend == "fp":
+            return torch.bmm(x, _dense_w(w, x.dtype))
+        if backend == "fused":
+            return self._fused(name, x, cfg, dispatch.fused_emm)
+        return self._fake(name, x, w, cfg, per_expert=True)
 
     def _observe(self, name: str, x: torch.Tensor, cfg: QuantConfig) -> None:
         """Report the to-be-quantized activation to the installed quality
@@ -148,9 +179,10 @@ class QuantCtx:
             "backend needs folded smooth factors (build the artifact "
             "with repro_torch.quantize.quantize_model)")
 
-    def _fused(self, name: str, x: torch.Tensor, cfg: QuantConfig):
+    def _fused(self, name: str, x: torch.Tensor, cfg: QuantConfig, matmul):
         """The packed kernel path: X/s on smooth sites (the buffer holds
-        Q(s*W)), then the fused MUXQ GEMM."""
+        Q(s*W)), then ``matmul`` (``dispatch.fused_matmul``, or
+        ``fused_emm`` per expert)."""
         if cfg.method in SMOOTH_METHODS:
             factor = self.smooth_factors.get(name)
             if factor is None:
@@ -163,27 +195,35 @@ class QuantCtx:
                 f"site {name!r}: backend 'fused' needs packed kernel "
                 "buffers — build the artifact with repro_torch.quantize."
                 "quantize_model, or load one written by either package")
-        return dispatch.fused_matmul(x, buf, act_bits=cfg.act_bits).to(x.dtype)
+        return matmul(x, buf, act_bits=cfg.act_bits).to(x.dtype)
 
-    def _fake(self, name: str, x: torch.Tensor, w, cfg: QuantConfig):
+    def _fake(self, name: str, x: torch.Tensor, w, cfg: QuantConfig,
+              per_expert: bool = False):
         """Quantize-dequantize and the real-int8 reference forms, on a raw
-        or prequantized weight."""
+        or prequantized weight (``per_expert``: each expert's slice on its
+        own, as the reference's vmap over experts)."""
         mask = self.masks.get(name) if cfg.outlier_mode == "static" else None
         if cfg.method in SMOOTH_METHODS:
             factor = self.smooth_factors.get(name)
             if factor is not None:
                 x = (x / factor).to(x.dtype)
                 cfg = self._smooth_base(cfg)
-                if not _is_prequant(w):
+                if not _is_prequant(w):     # [.., d, f]: s over the rows
                     w = (w * factor[:, None]).to(w.dtype)
             elif _is_prequant(w):
                 raise self._missing_factor(name, cfg, "fake")
             # else: quantize at use; qmatmul derives factors from the hint
         self._observe(name, x, cfg)
-        if _is_prequant(w):
-            return _prequant_matmul(x, w, cfg, mask)
-        return qmatmul(x, w.to(x.dtype), cfg, mask=mask,
-                       smooth=self.smooths.get(name))
+        hint = self.smooths.get(name)
+
+        def one(x_, w_):
+            if _is_prequant(w_):
+                return _prequant_matmul(x_, w_, cfg, mask)
+            return qmatmul(x_, w_.to(x_.dtype), cfg, mask=mask, smooth=hint)
+        if per_expert:
+            return torch.stack([one(x[e], _expert_w(w, e))
+                                for e in range(x.shape[0])])
+        return one(x, w)
 
 
 def as_ctx(quant, device="cuda"):

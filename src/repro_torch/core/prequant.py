@@ -6,7 +6,11 @@ the serving step reads one byte a weight and never re-quantizes.  Packing
 follows the policy: each site packs at its resolved weight bits and
 granularity (fp sites keep their leaf), and smooth-method sites fold
 their per-channel divisor into the weight first (``Q(s*W)``), so the
-runtime applies only X/s.  Embeddings, norms and biases stay as they are.
+runtime applies only X/s.  The MoE expert leaves ``moe/wi`` and
+``moe/wo`` ([E, in, out]) pack per expert and out channel.  Embeddings,
+norms, biases, the router and the shared expert (its leaves sit under
+``moe/shared/``, as in the reference, which leaves them unpacked) stay as
+they are.
 """
 from __future__ import annotations
 
@@ -21,10 +25,12 @@ from repro_torch.core.policy import SitePolicy
 
 
 # weight-path suffix -> the ctx site base name it is consumed under (the
-# dense family's matmul right-hand sides, the leaves eligible for int8)
+# dense and MoE families' matmul right-hand sides, the leaves eligible for
+# int8)
 _SITE_BY_SUFFIX = {
     "attn/wqkv": "attn_qkv", "attn/wo": "attn_out",
     "mlp/wi": "mlp_up", "mlp/wo": "mlp_down",
+    "moe/wi": "moe_up", "moe/wo": "moe_down",
 }
 
 
@@ -57,7 +63,8 @@ def _pack_cfg(policy: SitePolicy, pathstr: str, site: str, n_layers: int):
 
 def _weight_scale(leaf: torch.Tensor, bits: int, granularity: str) -> torch.Tensor:
     """Scale with keepdims, reducing the contraction axis (-2), plus the out
-    axis (-1) for per_tensor.  Divides by a device tensor (see
+    axis (-1) for per_tensor, so a per-expert leaf [E, in, out] scales per
+    expert.  Divides by a device tensor (see
     ``quantizers.absmax_scale``): the IEEE quotient the reference takes."""
     dims = {"per_channel": (-2,), "per_tensor": (-2, -1),
             "per_token": (-1,)}[granularity]
@@ -77,7 +84,7 @@ def prequantize_params(cfg, params, weight_bits: int = 8, *,
                        smooth_factors: Optional[Dict[str, np.ndarray]] = None):
     """The port's params with eligible weight leaves replaced by
     ``{"q": int8 [in, out], "s": f32 [1, out]}`` (per_channel; [1, 1] per
-    tensor).  With ``policy``, each site packs at its resolved weight bits
+    tensor; a per-expert leaf [E, in, out] gets scales [E, 1, out]).  With ``policy``, each site packs at its resolved weight bits
     and granularity (fp sites pass through untouched), and
     ``smooth_factors`` ({eager site: [in_ch] divisor}) fold into
     smooth-method sites before quantizing."""
@@ -110,7 +117,7 @@ def prequantize_params(cfg, params, weight_bits: int = 8, *,
                             "prequantize=False for this policy")
             for i, lp in enumerate(new_layers):
                 leaf = layers[i][mod][key]
-                if fold is not None:
+                if fold is not None:     # [.., in, out]: s over the rows
                     s = torch.as_tensor(np.array(fold[i], np.float32),
                                         device=leaf.device)
                     leaf = (leaf * s[:, None]).to(leaf.dtype)

@@ -1,5 +1,6 @@
 """Kernel dispatch for quantized matmul sites: backend selection, the
-kernel-ready per-site buffer format and the fused execution entry point.
+kernel-ready per-site buffer format and the fused execution entry points
+(``fused_matmul``; ``fused_emm`` for the MoE per-expert sites).
 
 Counterpart of ``repro/kernels/dispatch.py``.  Backends: ``fused`` (the
 packed single-GEMM MUXQ path), ``fake`` (quantize-dequantize and the
@@ -9,11 +10,16 @@ real-int8 reference forms, run by ``core/context.py``) and ``fp``
 Buffer layout (statics derive from shapes — ``bk = K_pad / nb``):
 
   w_int       int8 [K_pad, N]   packed weight, outlier rows first (on
-                                the device: a view of W^T [N, K_pad])
-  sw          f32  [1, N]       per-out-channel weight scales
+                                the device: a view of W^T [N, K_pad]);
+                                per-expert sites: [E, K_pad, N], each
+                                expert a view of its own W^T slab
+  sw          f32  [1, N]       per-out-channel weight scales ([E, 1, N])
   block_scale int32 [K_pad/bk]  2^exp on outlier K-blocks, 1 elsewhere
   gather_idx  int32 [K_pad]     source channel per packed slot
   in_scale    f32  [K_pad]      2^-exp outlier run, 0 pad slots, 1 else
+
+A per-expert site's experts share one outlier mask, so ``block_scale``,
+``gather_idx`` and ``in_scale`` are one for all of them.
 
 Execution (``set_fused_impl``): ``auto`` launches the CUDA kernels for
 CUDA tensors and takes the plain versions for CPU tensors; ``ref`` forces
@@ -109,22 +115,28 @@ def site_backend(cfg) -> Backend:
 
 def pack_site_buffer(w, mask: Optional[np.ndarray], cfg, *, bk: int = 512,
                      k_pad_to: Optional[int] = None) -> Dict[str, np.ndarray]:
-    """Pack one dense site's weight ([in_ch, out]) into the fused-kernel
-    buffer format (numpy arrays, the artifact's on-disk form)."""
+    """Pack one site's weight, [in_ch, out] or per expert [E, in_ch, out]
+    (one outlier mask for every expert), into the fused-kernel buffer
+    format: numpy arrays, the artifact's on-disk form.  A weight on the
+    card packs there."""
     if cfg.method in ("muxq", "muxq_smooth") and cfg.outlier_mode != "static":
         raise ValueError(
             "fused backend needs a static calibrated outlier mask "
             "(outlier_mode='static'): channels are permuted offline")
-    if w.ndim != 2:
-        raise ValueError(f"cannot pack weight of rank {w.ndim} (per-expert "
-                         "sites are not ported yet)")
+    if w.ndim not in (2, 3):
+        raise ValueError(f"cannot pack weight of rank {w.ndim}")
     k = w.shape[-2]
     mask = np.zeros(k, bool) if mask is None else np.asarray(mask, bool)
     if mask.shape != (k,):
         raise ValueError(f"mask shape {mask.shape} vs {k} input channels")
-    mw = ops.prepare_weights(w, mask, cfg.exp_factor, bk=bk,
-                             weight_bits=cfg.weight_bits, k_pad_to=k_pad_to)
-    return {f: getattr(mw, f).numpy() for f in BUFFER_FIELDS}
+    mws = [ops.prepare_weights(we, mask, cfg.exp_factor, bk=bk,
+                               weight_bits=cfg.weight_bits, k_pad_to=k_pad_to)
+           for we in ([w] if w.ndim == 2 else w)]
+    buf = {f: getattr(mws[0], f) for f in BUFFER_FIELDS}
+    if w.ndim == 3:
+        buf["w_int"] = torch.stack([m.w_int for m in mws])
+        buf["sw"] = torch.stack([m.sw for m in mws])
+    return {f: t.cpu().numpy() for f, t in buf.items()}
 
 
 def buffer_k_pad(buf) -> int:
@@ -141,8 +153,10 @@ def pad_buffer_to(buf: Dict[str, np.ndarray], k_pad: int) -> Dict[str, np.ndarra
     extra = k_pad - cur
     if extra <= 0 or extra % bk:
         raise ValueError(f"cannot pad K_pad {cur} to {k_pad} by blocks of {bk}")
+    w_int = np.asarray(buf["w_int"])
     return {
-        "w_int": np.pad(np.asarray(buf["w_int"]), [(0, extra), (0, 0)]),
+        "w_int": np.pad(w_int, [(0, 0)] * (w_int.ndim - 2)
+                        + [(0, extra), (0, 0)]),
         "sw": np.asarray(buf["sw"]),
         "block_scale": np.concatenate(
             [np.asarray(buf["block_scale"]), np.ones(extra // bk, np.int32)]),
@@ -153,13 +167,15 @@ def pad_buffer_to(buf: Dict[str, np.ndarray], k_pad: int) -> Dict[str, np.ndarra
 
 def buffer_to(buf, device) -> Dict[str, torch.Tensor]:
     """A buffer dict as tensors on ``device``: contiguous, except ``w_int``,
-    which keeps its logical shape [K_pad, N] as the transposed view of one
-    contiguous k-major copy W^T [N, K_pad] (the layout ``muxq_gemm``'s
-    kernel reads; the plain version reads any layout)."""
+    which keeps its logical shape [..., K_pad, N] as the transposed view of
+    one contiguous k-major copy W^T [..., N, K_pad] (the layout
+    ``muxq_gemm``'s kernel reads; the plain version reads any layout): a
+    per-expert weight [E, K_pad, N] gives each expert a contiguous
+    [N, K_pad] slab.  The transpose runs on ``device``."""
     out = {f: torch.as_tensor(np.asarray(buf[f])).to(device).contiguous()
            for f in BUFFER_FIELDS if f != "w_int"}
-    w = torch.as_tensor(np.asarray(buf["w_int"]))
-    out["w_int"] = w.T.contiguous().to(device).T
+    w = torch.as_tensor(np.asarray(buf["w_int"])).to(device)
+    out["w_int"] = w.transpose(-1, -2).contiguous().transpose(-1, -2)
     return {f: out[f] for f in BUFFER_FIELDS}
 
 
@@ -183,3 +199,25 @@ def fused_matmul(x: torch.Tensor, buf, *, act_bits: int = 8) -> torch.Tensor:
     if _FUSED_IMPL == "ref":
         return ops.muxq_linear_ref(x, mw, act_bits=act_bits)
     return ops.muxq_linear(x, mw, act_bits=act_bits)
+
+
+def fused_emm(x: torch.Tensor, buf, *, act_bits: int = 8) -> torch.Tensor:
+    """Per-expert fused matmul: x [E, C, K] @ a buffer with [E, ...] weight
+    leaves -> [E, C, N].  Rows quantize one by one and every expert shares
+    the channel map, so one ``rowwise_quantize`` over the flat [E*C, K]
+    rows equals quantizing expert by expert; then one ``muxq_gemm`` per
+    expert, on its rows, its k-major slab and its ``sw`` row.  ``ref``
+    runs the reference's oracle form, ``ops.muxq_linear_ref`` per expert."""
+    n_e, c, k = x.shape
+    mws = [as_muxq_weights({**buf, "w_int": buf["w_int"][e],
+                            "sw": buf["sw"][e]}) for e in range(n_e)]
+    if _FUSED_IMPL == "ref":
+        return torch.stack([ops.muxq_linear_ref(x[e], mw, act_bits=act_bits)
+                            for e, mw in enumerate(mws)])
+    x_int, sx = ops.rowwise_quantize(x.reshape(n_e * c, k), act_bits,
+                                     gather_idx=buf["gather_idx"],
+                                     in_scale=buf["in_scale"])
+    ys = [ops.muxq_gemm(x_int[e * c:(e + 1) * c], mw.w_int, mw.block_scale,
+                        sx[e * c:(e + 1) * c], mw.sw, bk=mw.bk)
+          for e, mw in enumerate(mws)]
+    return torch.stack(ys).to(x.dtype)

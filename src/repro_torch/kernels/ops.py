@@ -45,10 +45,15 @@ def prepare_weights(w, outlier_mask: np.ndarray, exp_factor: int,
     """Offline step: permute outlier channels to the front and zero-pad the
     outlier run up to a bk multiple, so normal channels never share a
     x2^e block.  ``k_pad_to`` forces a larger padded width (whole extra
-    zero K-blocks at the tail).  Returns CPU tensors."""
-    w = np.asarray(w.detach().cpu() if isinstance(w, torch.Tensor) else w,
-                   np.float32)
-    k = w.shape[0]
+    zero K-blocks at the tail).  ``w`` [K, N] is an array or a tensor; the
+    weight work runs on its device (a tensor on the card packs there) and
+    every field comes back on it."""
+    if isinstance(w, torch.Tensor):
+        w = w.detach().float()
+    else:
+        w = torch.from_numpy(np.asarray(w, np.float32))
+    dev = w.device
+    k, n = w.shape
     bk = min(bk, k)
     mask = np.asarray(outlier_mask, bool)
     idx_out = np.nonzero(mask)[0]
@@ -66,10 +71,10 @@ def prepare_weights(w, outlier_mask: np.ndarray, exp_factor: int,
                              f"blocks of {bk}")
         pad_tail += extra
 
-    w_perm = w[perm]
-    w_padded = np.concatenate(
-        [w_perm[:n_out], np.zeros((pad_out, w.shape[1]), np.float32),
-         w_perm[n_out:], np.zeros((pad_tail, w.shape[1]), np.float32)])
+    w_perm = w[torch.from_numpy(perm).to(dev)]
+    w_padded = torch.cat([w_perm[:n_out], w.new_zeros(pad_out, n),
+                          w_perm[n_out:], w.new_zeros(pad_tail, n)])
+    del w_perm
     k_pad = k + pad_out + pad_tail
     block_scale = np.ones(k_pad // bk, np.int32)
     block_scale[:n_blocks_out] = 2 ** exp_factor
@@ -81,12 +86,11 @@ def prepare_weights(w, outlier_mask: np.ndarray, exp_factor: int,
     gather_idx[n_out + pad_out: n_out + pad_out + len(idx_norm)] = idx_norm
     in_scale[n_out + pad_out: n_out + pad_out + len(idx_norm)] = 1.0
 
-    w_int, sw = Q.quantize(torch.from_numpy(w_padded), weight_bits,
-                           "per_channel")
+    w_int, sw = Q.quantize(w_padded, weight_bits, "per_channel")
     return MuxqWeights(w_int=w_int, sw=sw.reshape(1, -1),
-                       block_scale=torch.from_numpy(block_scale),
-                       gather_idx=torch.from_numpy(gather_idx),
-                       in_scale=torch.from_numpy(in_scale),
+                       block_scale=torch.from_numpy(block_scale).to(dev),
+                       gather_idx=torch.from_numpy(gather_idx).to(dev),
+                       in_scale=torch.from_numpy(in_scale).to(dev),
                        bk=bk, k_orig=k, perm=perm,
                        pad_out=pad_out, pad_tail=pad_tail, n_out=n_out)
 

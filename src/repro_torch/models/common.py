@@ -1,15 +1,16 @@
-"""Shared model substrate: config, norms, rotary embeddings, softcap,
-cross-entropy.
+"""Shared model substrate: config, weight init, norms, rotary embeddings,
+softcap, cross-entropy.
 
 Counterpart of ``repro/models/common.py``.  ``ModelConfig`` is the
 reference's frozen dataclass with the fields of the families the port
-serves (the MoE, SSM, hybrid and encoder-decoder fields join with those
-families); ``compute_dtype`` maps the dtype name to a
+serves, dense and MoE (the SSM, hybrid and encoder-decoder fields join
+with those families); ``compute_dtype`` maps the dtype name to a
 ``torch.dtype``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -40,6 +41,10 @@ class ModelConfig:
     rope_theta: float = 10000.0
 
     mlp_type: str = "swiglu"                     # swiglu|gelu
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    shared_expert: bool = False                  # llama4-style shared expert
 
     # vlm (internvl2) — patch embeds prepended to token embeds
     n_patches: int = 0
@@ -82,6 +87,14 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def dense_init(gen: torch.Generator, shape, fan_in: Optional[int] = None,
+               device="cuda") -> torch.Tensor:
+    """Seeded normal weights with std 1/sqrt(fan_in); ``fan_in`` defaults
+    to ``shape[0]``, as the reference's ``dense_init`` does."""
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return w / math.sqrt(fan_in or shape[0])
 
 
 # ---------------------------------------------------------------------------

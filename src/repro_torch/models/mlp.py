@@ -6,7 +6,19 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, dense_init
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
+    """Seeded weights of one MLP block, the reference's shapes and scales."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type == "swiglu":
+        return {"wi": dense_init(gen, (d, 2 * f), d, device),
+                "wo": dense_init(gen, (f, d), f, device)}
+    return {"wi": dense_init(gen, (d, f), d, device),
+            "wo": dense_init(gen, (f, d), f, device),
+            "bi": torch.zeros(f, device=device),
+            "bo": torch.zeros(d, device=device)}
 
 
 def mlp(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,16 @@
-"""The dense decoder: parameter init, the eager full-sequence ``forward``
-(calibration) and the three paged serving steps.
+"""The decoder stack of the dense and MoE families: parameter init, the
+eager full-sequence ``forward`` (calibration) and the three paged serving
+steps.
 
-Counterpart of the dense family of ``repro/models/transformer.py``.  The
-reference scans over ``[L, ...]``-stacked layers; here the layer loop is a
-Python loop over per-layer param dicts (``repro_torch.convert`` maps the
-reference's stacked tree), and sites carry eager names (``layer{i}/...``)
-so a ``QuantCtx`` finds each layer's packed kernel buffers and a
-``CollectCtx`` attributes calibration stats per layer.
+Counterpart of the dense and MoE families of
+``repro/models/transformer.py``.  The reference scans over
+``[L, ...]``-stacked layers; here the layer loop is a Python loop over
+per-layer param dicts (``repro_torch.convert`` maps the reference's
+stacked tree), and sites carry eager names (``layer{i}/...``) so a
+``QuantCtx`` finds each layer's packed kernel buffers and a
+``CollectCtx`` attributes calibration stats per layer.  A layer with a
+``"moe"`` subtree runs the mixture-of-experts block (``models/moe.py``)
+where a dense layer runs its MLP.
 """
 from __future__ import annotations
 
@@ -18,7 +22,9 @@ import torch
 from repro_torch.core.context import FpCtx
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
-from repro_torch.models.common import ModelConfig, apply_norm, softcap
+from repro_torch.models import moe as E
+from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
+                                       softcap)
 
 
 class _Named:
@@ -30,15 +36,13 @@ class _Named:
     def __call__(self, name, x, w):
         return self.ctx(self.prefix + name, x, w)
 
+    def emm(self, name, x, w):
+        return self.ctx.emm(self.prefix + name, x, w)
+
 
 # ---------------------------------------------------------------------------
 # Init (seeded random weights, the reference's shapes and scales)
 # ---------------------------------------------------------------------------
-
-def _dense(gen, shape, fan_in, device):
-    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return w / math.sqrt(fan_in)
-
 
 def _norm(cfg, d, device):
     if cfg.norm == "rmsnorm":
@@ -49,16 +53,19 @@ def _norm(cfg, d, device):
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random weights from ``seed``, in the port's layout, for the dense
-    family: sandwich norms (``ln1b``/``ln2b``) where ``cfg.sandwich_norm``
-    is set, and an ``lm_head`` [d, V_pad] for an untied head.
+    and MoE families: sandwich norms (``ln1b``/``ln2b``) where
+    ``cfg.sandwich_norm`` is set, a ``moe`` subtree (router, per-expert
+    ``wi``/``wo``, the shared expert) in place of ``mlp`` for a ``moe``
+    block, and an ``lm_head`` [d, V_pad] for an untied head.
     ``torch.Generator`` streams differ from ``jax.random``: tests that
     compare with the reference pass its params through
     ``repro_torch.convert.from_jax_params`` instead."""
-    if cfg.family != "dense":
-        raise NotImplementedError("the port initializes dense decoders only")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError("the port initializes the dense and MoE "
+                                  f"decoders, not {cfg.family}")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
+    d, dh = cfg.d_model, cfg.head_dim
     h, kv = cfg.n_heads, cfg.n_kv_heads
     params = {
         "embed": 0.02 * torch.randn((cfg.padded_vocab, d), generator=gen,
@@ -66,27 +73,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         "ln_f": _norm(cfg, d, device),
         "layers": [],
     }
-    for _ in range(cfg.n_layers):
-        attn = {"wqkv": _dense(gen, (d, (h + 2 * kv) * dh), d, device),
-                "wo": _dense(gen, (h * dh, d), h * dh, device)}
+    for kind in cfg.blocks:
+        attn = {"wqkv": dense_init(gen, (d, (h + 2 * kv) * dh), d, device),
+                "wo": dense_init(gen, (h * dh, d), h * dh, device)}
         if cfg.qkv_bias:
             attn["bqkv"] = torch.zeros((h + 2 * kv) * dh, device=device)
-        if cfg.mlp_type == "swiglu":
-            mlp = {"wi": _dense(gen, (d, 2 * f), d, device),
-                   "wo": _dense(gen, (f, d), f, device)}
-        else:
-            mlp = {"wi": _dense(gen, (d, f), d, device),
-                   "wo": _dense(gen, (f, d), f, device),
-                   "bi": torch.zeros(f, device=device),
-                   "bo": torch.zeros(d, device=device)}
         layer = {"ln1": _norm(cfg, d, device), "attn": attn,
-                 "ln2": _norm(cfg, d, device), "mlp": mlp}
+                 "ln2": _norm(cfg, d, device)}
+        if kind == "moe":
+            layer["moe"] = E.init_moe(gen, cfg, device)
+        else:
+            layer["mlp"] = M.init_mlp(gen, cfg, device)
         if cfg.sandwich_norm:
             layer["ln1b"] = _norm(cfg, d, device)
             layer["ln2b"] = _norm(cfg, d, device)
         params["layers"].append(layer)
     if not cfg.tie_embeddings:
-        params["lm_head"] = _dense(gen, (d, cfg.padded_vocab), d, device)
+        params["lm_head"] = dense_init(gen, (d, cfg.padded_vocab), d, device)
     return params
 
 
@@ -110,17 +113,21 @@ def _layer_caches(kv: dict, i: int):
 
 
 def _block(cfg, lp, ctx, x, attend):
-    """One pre-norm layer; ``attend(p, ctx, h)`` is the attention flavour."""
+    """One pre-norm layer; ``attend(p, ctx, h)`` is the attention flavour.
+    Returns (x, the MoE aux loss, or None for a dense layer)."""
     h = apply_norm(cfg, lp["ln1"], x)
     a = attend(lp["attn"], ctx, h)
     if cfg.sandwich_norm:
         a = apply_norm(cfg, lp["ln1b"], a)
     x = x + a
     h = apply_norm(cfg, lp["ln2"], x)
-    m = M.mlp(cfg, lp["mlp"], ctx, h)
+    if "moe" in lp:
+        m, aux = E.moe(cfg, lp["moe"], ctx, h)
+    else:
+        m, aux = M.mlp(cfg, lp["mlp"], ctx, h), None
     if cfg.sandwich_norm:
         m = apply_norm(cfg, lp["ln2b"], m)
-    return x + m
+    return x + m, aux
 
 
 def _head(cfg, params, x):
@@ -139,38 +146,42 @@ def _head(cfg, params, x):
 
 
 def _run(cfg, params, x, kv, routing, ctx, step):
-    if cfg.family != "dense":
-        raise ValueError(f"paged serving supports the dense family, not "
-                         f"{cfg.family}")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"paged serving supports the dense and MoE "
+                         f"families, not {cfg.family}")
     ctx = ctx or FpCtx()
     for i, (lp, kind) in enumerate(zip(params["layers"], cfg.blocks)):
         cache = {**_layer_caches(kv, i), **routing}
         attend = (lambda p, c, h, cache=cache, flag=kind == "local":
                   step(cfg, p, c, h, cache, window_flag=flag)[0])
-        x = _block(cfg, lp, _Named(ctx, f"layer{i}/"), x, attend)
+        x, _ = _block(cfg, lp, _Named(ctx, f"layer{i}/"), x, attend)
     return _head(cfg, params, x)
 
 
 def forward(cfg: ModelConfig, params, tokens, ctx=None, *, extra=None) -> dict:
-    """Full-sequence eager forward of the dense family (the reference's
-    ``forward(..., scan=False)``): sites carry ``layer{i}/`` names, so a
-    ``CollectCtx`` attributes calibration stats per layer, and each
-    layer's attention reports its K/V to the KV observer.  tokens [b, s];
-    ``extra={"patches": [b, n_patches, d]}`` prefixes a VLM's patch
-    embeddings (``cfg.n_patches``).  Returns {"logits": [b, s', V]}, s' =
-    s plus the patches."""
-    if cfg.family != "dense":
-        raise ValueError(f"the port's forward runs the dense family, not "
-                         f"{cfg.family}")
+    """Full-sequence eager forward of the dense and MoE families (the
+    reference's ``forward(..., scan=False)``, inference dispatch): sites
+    carry ``layer{i}/`` names, so a ``CollectCtx`` attributes calibration
+    stats per layer, and each layer's attention reports its K/V to the KV
+    observer.  tokens [b, s]; ``extra={"patches": [b, n_patches, d]}``
+    prefixes a VLM's patch embeddings (``cfg.n_patches``).  Returns
+    {"logits": [b, s', V], "aux": the summed MoE aux loss (0 for dense)},
+    s' = s plus the patches."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the port's forward runs the dense and MoE "
+                         f"families, not {cfg.family}")
     ctx = ctx or FpCtx()
     x = _embed(cfg, params, tokens, extra)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    aux_total = torch.zeros((), device=x.device)
     for i, (lp, kind) in enumerate(zip(params["layers"], cfg.blocks)):
         attend = (lambda p, c, h, flag=kind == "local":
                   A.attention(cfg, p, c, h, positions, window_flag=flag))
-        x = _block(cfg, lp, _Named(ctx, f"layer{i}/"), x, attend)
-    return {"logits": _head(cfg, params, x)}
+        x, aux = _block(cfg, lp, _Named(ctx, f"layer{i}/"), x, attend)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return {"logits": _head(cfg, params, x), "aux": aux_total}
 
 
 def decode_step_paged(cfg: ModelConfig, params, tokens, kv: dict,

@@ -42,10 +42,17 @@ _GROUPS = ("masks", "act_absmax", "smooth_factors", "scan_qparams",
 
 PACK_TARGETS = ("both", "fused", "tree")
 
-# ctx site base name -> weight leaf inside one layer's params (dense family)
+# ctx site base name -> weight-leaf path inside one layer's params.  In MoE
+# layers the shared expert runs through mlp() (eager sites
+# layer{i}/mlp_up|down) but its weights live under moe/shared/: the
+# fallback path.
 SITE_WEIGHT_PATH = {
     "attn_qkv": ("attn", "wqkv"), "attn_out": ("attn", "wo"),
     "mlp_up": ("mlp", "wi"), "mlp_down": ("mlp", "wo"),
+    "moe_up": ("moe", "wi"), "moe_down": ("moe", "wo"),
+}
+_SITE_WEIGHT_FALLBACK = {
+    "mlp_up": ("moe", "shared", "wi"), "mlp_down": ("moe", "shared", "wo"),
 }
 
 _SITE_RE = re.compile(r"^(layer)(\d+)/(.+)$")
@@ -59,16 +66,41 @@ def split_site(site: str):
     return m.group(1), int(m.group(2)), m.group(3)
 
 
+def _site_leaf(layer: dict, base: str):
+    """(path, leaf) of the weight an eager site base consumes in one
+    layer's params ([in_ch, out]; [E, in_ch, out] at an expert site), or
+    None where the layer has no such leaf."""
+    for path in (SITE_WEIGHT_PATH.get(base), _SITE_WEIGHT_FALLBACK.get(base)):
+        if path is None:
+            continue
+        node = layer
+        for key in path:
+            node = node.get(key) if isinstance(node, dict) else None
+        if node is not None:
+            return path, node
+    return None
+
+
+def _with_leaf(tree: dict, path, value) -> dict:
+    """A copy of ``tree`` with the leaf at ``path`` replaced (the dicts
+    along the path copied; the caller's tree stays as it was)."""
+    if len(path) == 1:
+        return {**tree, path[0]: value}
+    return {**tree, path[0]: _with_leaf(tree[path[0]], path[1:], value)}
+
+
 def _site_weight(params, site: str) -> Optional[torch.Tensor]:
-    """The 2-D [in_ch, out] weight an eager site of the port's params
-    consumes, or None when the site has no such leaf."""
+    """The 2-D [in_ch, flattened out] weight an eager site of the port's
+    params consumes (an expert site's [E, in_ch, out] with the experts
+    folded into the out dim), or None when the site has no raw leaf."""
     kind, idx, base = split_site(site)
-    path = SITE_WEIGHT_PATH.get(base)
-    if kind != "layer" or path is None or idx >= len(params["layers"]):
+    if kind != "layer" or idx >= len(params["layers"]):
         return None
-    mod, leaf = path
-    w = params["layers"][idx].get(mod, {}).get(leaf)
-    return None if w is None or _is_prequant(w) else w
+    found = _site_leaf(params["layers"][idx], base)
+    if found is None or _is_prequant(found[1]):
+        return None
+    w = found[1]
+    return w.movedim(-2, 0).reshape(w.shape[-2], -1)
 
 
 def _flatten_nested(group: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -209,20 +241,20 @@ def apply_pack_target(artifact: QuantArtifact, pack_target: str) -> QuantArtifac
         return dataclasses.replace(artifact, meta=meta)
     if isinstance(params["layers"], dict):      # loaded from a bundle
         params = from_jax_params(None, params, "cpu")
-    layers = [dict(lp) for lp in params["layers"]]
-    for base, (mod, key) in SITE_WEIGHT_PATH.items():
+    layers = list(params["layers"])
+    for base in SITE_WEIGHT_PATH:
         if not all(f"layer{i}/{base}" in artifact.kernel_buffers
                    for i in range(len(layers))):
             continue                    # partial fused coverage: keep the copy
-        if not all(_is_prequant(lp.get(mod, {}).get(key)) for lp in layers):
-            continue                    # not packed (fp site etc.)
-        for lp in layers:
-            leaf = lp[mod][key]
+        found = [_site_leaf(lp, base) for lp in layers]
+        if not all(f is not None and _is_prequant(f[1]) for f in found):
+            continue                    # not packed (fp site, shared expert)
+        for i, (path, leaf) in enumerate(found):
             stub = {"q": torch.zeros((1,) * leaf["q"].ndim, dtype=torch.int8,
                                      device=leaf["q"].device),
                     "s": torch.ones((1,) * leaf["s"].ndim, dtype=torch.float32,
                                     device=leaf["s"].device)}
-            lp[mod] = {**lp[mod], key: stub}
+            layers[i] = _with_leaf(layers[i], path, stub)
     return dataclasses.replace(artifact, params={**params, "layers": layers},
                                meta=meta)
 
@@ -231,16 +263,25 @@ def apply_pack_target(artifact: QuantArtifact, pack_target: str) -> QuantArtifac
 # Calibration, packing and the quantize_model entry point
 # ---------------------------------------------------------------------------
 
+def _scan_key(cfg, base: str) -> str:
+    """The bare key the reference's scanned layer loop reads for an eager
+    site base: in MoE layers the shared expert's sites
+    ``layer{i}/mlp_up|down`` read ``moe_shared_up|down``."""
+    if cfg.family == "moe" and base in ("mlp_up", "mlp_down"):
+        return "moe_shared_" + base.split("_", 1)[1]
+    return base
+
+
 def _stack_qparams(cfg, masks: Dict[str, np.ndarray],
                    factors: Dict[str, np.ndarray],
                    buffers: Optional[Dict[str, dict]] = None) -> Dict[str, Any]:
     """{bare site: [L, ch]} stacked state for the reference's scanned layer
     loop (the port runs its layers eagerly and never reads it; the bundle
     carries it so the reference serves a port-written bundle as its own).
-    Masks stack under the bare site, factors under '{site}@smooth', kernel
-    buffers field-wise under '{site}@fused' (layers whose packed widths
-    differ padded first to one K_pad with inert blocks).  Sites that miss a
-    layer are left out."""
+    Masks stack under the bare site (``_scan_key``), factors under
+    '{site}@smooth', kernel buffers field-wise under '{site}@fused' (layers
+    whose packed widths differ padded first to one K_pad with inert
+    blocks).  Sites that miss a layer are left out."""
     out: Dict[str, Any] = {}
     for source, suffix in ((masks, ""), (factors, "@smooth")):
         bases = {split_site(s)[2] for s in source if split_site(s)[0] == "layer"}
@@ -248,7 +289,8 @@ def _stack_qparams(cfg, masks: Dict[str, np.ndarray],
             vals = [source.get(f"layer{i}/{base}") for i in range(cfg.n_layers)]
             if any(v is None for v in vals):
                 continue
-            out[base + suffix] = np.stack([np.asarray(v) for v in vals])
+            out[_scan_key(cfg, base) + suffix] = np.stack(
+                [np.asarray(v) for v in vals])
     buffers = buffers or {}
     bases = {split_site(s)[2] for s in buffers if split_site(s)[0] == "layer"}
     for base in sorted(bases):
@@ -257,40 +299,43 @@ def _stack_qparams(cfg, masks: Dict[str, np.ndarray],
             continue
         k_pad = max(dispatch.buffer_k_pad(v) for v in vals)
         vals = [dispatch.pad_buffer_to(v, k_pad) for v in vals]
-        out[base + "@fused"] = {f: np.stack([v[f] for v in vals])
-                                for f in dispatch.BUFFER_FIELDS}
+        out[_scan_key(cfg, base) + "@fused"] = {
+            f: np.stack([v[f] for v in vals]) for f in dispatch.BUFFER_FIELDS}
     return out
 
 
-def _fused_sites(cfg, policy: SitePolicy):
-    """(eager site, resolved cfg, layer, weight path) for every dense site
-    whose policy resolves to the fused backend."""
+def _fused_sites(cfg, params, policy: SitePolicy):
+    """(eager site, resolved cfg, weight leaf) for every site of the port's
+    params whose policy resolves to the fused backend."""
     for i in range(cfg.n_layers):
-        for base, path in SITE_WEIGHT_PATH.items():
+        for base in SITE_WEIGHT_PATH:
+            found = _site_leaf(params["layers"][i], base)
+            if found is None:
+                continue
             site = f"layer{i}/{base}"
             scfg = policy.resolve(site)
             if scfg.method != "fp" and dispatch.site_backend(scfg) == "fused":
-                yield site, scfg, i, path
+                yield site, scfg, found[1]
 
 
 def pack_kernel_buffers(cfg, params, policy, masks: Dict[str, np.ndarray],
                         factors: Optional[Dict[str, np.ndarray]] = None
                         ) -> Dict[str, Dict[str, np.ndarray]]:
     """Kernel-ready packed buffer per fused-backend site (dispatch format),
-    from the port's params.  muxq-family sites need a calibrated static
-    mask (packing bakes the channel permutation); smooth-method sites fold
-    their divisor into the weight first (``Q(s*W)``), as
-    ``prequantize_params`` does, and the runtime applies X/s."""
+    from the port's params (a weight on the card packs there).
+    muxq-family sites need a calibrated static mask (packing bakes the
+    channel permutation); smooth-method sites fold their divisor into the
+    weight first (``Q(s*W)``), as ``prequantize_params`` does, and the
+    runtime applies X/s."""
     policy = as_policy(policy)
     buffers: Dict[str, Dict[str, np.ndarray]] = {}
-    for site, scfg, i, (mod, leaf) in _fused_sites(cfg, policy):
+    for site, scfg, w in _fused_sites(cfg, params, policy):
         mask = masks.get(site)
         if scfg.method in ("muxq", "muxq_smooth") and mask is None:
             raise ValueError(
                 f"site {site!r}: fused {scfg.method!r} needs a calibrated "
                 "static outlier mask (the channel permutation is baked at "
                 "pack time)")
-        w = params["layers"][i][mod][leaf]
         if scfg.method in SMOOTH_METHODS:
             factor = (factors or {}).get(site)
             if factor is None:
@@ -298,7 +343,7 @@ def pack_kernel_buffers(cfg, params, policy, masks: Dict[str, np.ndarray],
                     f"site {site!r}: fused {scfg.method!r} needs folded "
                     "smooth factors — pass calibration data")
             s = torch.as_tensor(np.array(factor, np.float32), device=w.device)
-            w = (w * s[:, None]).to(w.dtype)
+            w = (w * s[:, None]).to(w.dtype)       # [.., in, out]: s over rows
         buffers[site] = dispatch.pack_site_buffer(w, mask, scfg)
     return buffers
 

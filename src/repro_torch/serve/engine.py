@@ -71,7 +71,7 @@ class Request:
 
 
 class ServeEngine:
-    """Paged continuous-batching engine for a dense decoder.
+    """Paged continuous-batching engine for a dense or MoE decoder.
 
     ``kv_mode`` None follows the weight path (int8 pages for quantized
     serving, fp pages otherwise); fp pages are stored in ``cache_dtype``.
@@ -86,8 +86,9 @@ class ServeEngine:
                  prefill_aging: float = 1.0, spec_mode: str = "off",
                  spec_k: int = 4, recorder=None, quality=None,
                  device="cuda"):
-        if cfg.family != "dense":
-            raise ValueError(f"the engine serves dense decoders, not {cfg.family}")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"the engine serves dense and MoE decoders, not "
+                             f"{cfg.family}")
         if isinstance(params, QuantArtifact):
             if quant is not None:
                 raise ValueError("pass either an artifact as params or a "
@@ -103,6 +104,8 @@ class ServeEngine:
         self.max_batch, self.s_max = max_batch, s_max
         self.prefix_sharing = prefix_sharing
         self.ctx = as_ctx(quant, self.device)
+        if isinstance(self.ctx, QuantCtx):
+            self._check_fused_buffers()
         if kv_mode is None:
             kv_mode = "int8" if isinstance(self.ctx, QuantCtx) else "fp"
         if prefill_chunk < 1:
@@ -130,6 +133,22 @@ class ServeEngine:
         self.verify_buckets = set()      # (k, page) bucket pairs (lifetime)
         if self.recorder.enabled:
             self.recorder.set_metadata(mesh_devices=1, kv_shards=1)
+
+    def _check_fused_buffers(self) -> None:
+        """Fail here, not inside a step: a policy that routes this model's
+        sites to the fused backend needs packed kernel buffers."""
+        bases = ["attn_qkv", "attn_out", "mlp_up", "mlp_down"]
+        if self.cfg.family == "moe":
+            bases += ["moe_up", "moe_down"]
+        names = [f"layer{i}/{b}" for i in range(self.cfg.n_layers)
+                 for b in bases]
+        wants_fused = any(c.method != "fp" and c.backend == "fused"
+                          for c in map(self.ctx.policy.resolve, names))
+        if wants_fused and not self.ctx.kernel_buffers:
+            raise ValueError(
+                "policy routes sites to the 'fused' backend but no packed "
+                "kernel buffers are available — build the artifact with "
+                "repro_torch.quantize.quantize_model")
 
     # the reference's jit-trace counters: one per bucket key first used
     @property

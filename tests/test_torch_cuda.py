@@ -15,6 +15,7 @@ from repro_torch.kernels import build, dispatch, ops
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import muxq_gemm as G
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import quantize as RQ
 from repro_torch.kernels.muxq_gemm import muxq_gemm
 from repro_torch.kernels.quantize import rowwise_quantize, rowwise_quantize_plain
 from repro_torch.serve.kvcache import quantize_kv
@@ -229,6 +230,41 @@ def test_cuda_served_weights_are_k_major(cuda):
     prev = dispatch.set_fused_impl("ref")
     try:
         assert torch.equal(y, dispatch.fused_matmul(x, on_card))
+    finally:
+        dispatch.set_fused_impl(prev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [8, 128])
+def test_cuda_fused_emm_per_expert_bit_equal(cuda, cap):
+    """A per-expert buffer packed on the card (``pack_site_buffer`` on a
+    CUDA weight: the same bytes as on the host) runs ``fused_emm`` as one
+    quantize and one GEMM per expert, bit-equal to the plain per-expert
+    oracle form."""
+    rng = np.random.default_rng(4)
+    n_e, k, n = 4, 640, 384
+    w = rng.standard_normal((n_e, k, n)).astype(np.float32)
+    mask = np.zeros(k, bool)
+    mask[[7, 300, 301]] = True
+    from repro_torch.core.muxq import QuantConfig
+    qcfg = QuantConfig(method="muxq", outlier_mode="static",
+                       act_granularity="per_token", backend="fused",
+                       weight_granularity="per_channel")
+    host = dispatch.pack_site_buffer(torch.from_numpy(w), mask, qcfg, bk=128)
+    card = dispatch.pack_site_buffer(torch.from_numpy(w).to(cuda), mask, qcfg,
+                                     bk=128)
+    for f in dispatch.BUFFER_FIELDS:
+        np.testing.assert_array_equal(card[f], host[f], err_msg=f)
+    buf = dispatch.buffer_to(card, cuda)
+    x = torch.from_numpy(rng.standard_normal((n_e, cap, k)).astype(
+        np.float32)).to(cuda)
+    x[..., torch.from_numpy(mask).to(cuda)] *= 40.0
+    before = (RQ.LAUNCHES, G.LAUNCHES)
+    y = dispatch.fused_emm(x, buf)
+    assert (RQ.LAUNCHES - before[0], G.LAUNCHES - before[1]) == (1, n_e)
+    prev = dispatch.set_fused_impl("ref")
+    try:
+        assert torch.equal(y, dispatch.fused_emm(x, buf))
     finally:
         dispatch.set_fused_impl(prev)
 

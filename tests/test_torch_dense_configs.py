@@ -100,10 +100,11 @@ def test_config_fields_equal_reference(arch, reduced):
 def test_registry_lists_the_reference_order():
     archs = list_archs()
     assert archs == [a for a in jlist_archs() if a in archs]
-    assert set(ARCHS) | {"qwen2-0.5b"} == set(archs)
+    assert set(ARCHS) | {"qwen2-0.5b", "llama4-scout-17b-a16e",
+                         "dbrx-132b"} == set(archs)
     assert "gpt2-small" not in archs and get_config("gpt2-small").n_layers == 12
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("dbrx-132b")
+        get_config("mamba2-370m")
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ from repro_torch.core.muxq import QuantConfig
 from repro_torch.kernels import build, dispatch, ops
 from repro_torch.kernels import muxq_gemm as G
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import quantize as RQ
 from repro_torch.kernels.muxq_gemm import accumulate_plain, muxq_gemm
 from repro_torch.kernels.quantize import rowwise_quantize
 from repro_torch.serve.kvcache import quantize_kv
@@ -288,6 +289,101 @@ def test_muxq_gemm_launch_takes_only_a_k_major_weight(monkeypatch):
     assert G.LAUNCHES == before + 1 and len(calls) == 1
     assert calls[0][1] == w_t.data_ptr()
     assert calls[0][6:11] == (4, 64, 1024, 512, 132)   # M, N, K, bk, SMs
+
+
+def _expert_buffer(seed, e=3, k=200, n=48, bk=64):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((e, k, n)).astype(np.float32)
+    mask = np.zeros(k, bool)
+    mask[[3, 17, 150]] = True
+    bj = jdispatch.pack_site_buffer(jnp.asarray(w), mask, JQuantConfig(**CFG),
+                                    bk=bk)
+    return mask, {f: np.asarray(v) for f, v in bj.items()}
+
+
+def test_buffer_to_gives_each_expert_a_k_major_slab():
+    """A per-expert buffer [E, K_pad, N] (the reference's), moved by
+    ``buffer_to``: every field equals the reference's array; each expert's
+    weight is the transposed view of its own contiguous [N, K_pad] slab of
+    one int8 copy; ``fused_emm`` on it (plain versions, and the oracle
+    form) gives the reference's ``fused_emm`` output bit for bit."""
+    mask, bj = _expert_buffer(13)
+    moved = dispatch.buffer_to(bj, "cpu")
+    for f in dispatch.BUFFER_FIELDS:
+        np.testing.assert_array_equal(moved[f].numpy(), bj[f], err_msg=f)
+    wi = moved["w_int"]
+    assert wi.shape == bj["w_int"].shape and moved["sw"].shape == (3, 1, 48)
+    assert wi.untyped_storage().nbytes() == wi.numel()
+    k_pad = wi.shape[1]
+    for e in range(wi.shape[0]):
+        assert wi[e].T.is_contiguous()
+        assert wi[e].data_ptr() == wi.data_ptr() + e * k_pad * wi.shape[2]
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((3, 5, 200)).astype(np.float32)
+    x[..., mask] *= 40.0
+    yj = np.asarray(jdispatch.fused_emm(jnp.asarray(x), {
+        f: jnp.asarray(v) for f, v in bj.items()}))
+    yt = dispatch.fused_emm(torch.from_numpy(x), moved)
+    np.testing.assert_array_equal(yt.numpy(), yj)
+    prev = dispatch.set_fused_impl("ref")
+    try:
+        np.testing.assert_array_equal(
+            dispatch.fused_emm(torch.from_numpy(x), moved).numpy(), yj)
+    finally:
+        dispatch.set_fused_impl(prev)
+
+
+def test_pack_site_buffer_per_expert_matches_reference():
+    """[E, K, N] packs per expert with one channel map, bit-equal to the
+    reference's; padding to a wider K_pad pads every expert."""
+    rng = np.random.default_rng(15)
+    w = rng.standard_normal((4, 96, 40)).astype(np.float32)
+    mask = np.zeros(96, bool)
+    mask[[1, 50]] = True
+    bt = dispatch.pack_site_buffer(torch.from_numpy(w), mask,
+                                   QuantConfig(**CFG), bk=32)
+    bj = jdispatch.pack_site_buffer(jnp.asarray(w), mask, JQuantConfig(**CFG),
+                                    bk=32)
+    assert bt["w_int"].shape == (4, 128, 40) and bt["sw"].shape == (4, 1, 40)
+    pt, pj = dispatch.pad_buffer_to(bt, 192), jdispatch.pad_buffer_to(bj, 192)
+    for f in dispatch.BUFFER_FIELDS:
+        np.testing.assert_array_equal(bt[f], np.asarray(bj[f]), err_msg=f)
+        np.testing.assert_array_equal(pt[f], np.asarray(pj[f]), err_msg=f)
+
+
+def test_fused_emm_launches_one_quantize_and_a_gemm_per_expert(monkeypatch):
+    """What CUDA tensors reach in ``fused_emm``: one ``rowwise_quantize``
+    launch over all experts' rows [E*C, K], then E ``muxq_gemm`` launches,
+    expert e's on its rows of the codes and scales, its own k-major slab
+    and its own ``sw`` row, each without a copy.  The wrappers' launch
+    paths run with a stub kernel library, so no card is needed."""
+    calls = []
+    monkeypatch.setattr(build, "launcher",
+                        lambda name: lambda *a: calls.append((name, a)) or 0)
+    monkeypatch.setattr(build, "sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=None))
+    monkeypatch.setattr(ops, "rowwise_quantize",
+                        lambda x, bits, gather_idx, in_scale: RQ._launch(
+                            x, bits, gather_idx, in_scale))
+    monkeypatch.setattr(ops, "muxq_gemm", lambda *a, bk: G._launch(*a, bk))
+    _, bj = _expert_buffer(16, e=3, k=256, n=48)
+    buf = dispatch.buffer_to(bj, "cpu")
+    n_e, c, k_pad = 3, 8, buf["w_int"].shape[1]
+    before = (RQ.LAUNCHES, G.LAUNCHES)
+    y = dispatch.fused_emm(torch.zeros(n_e, c, 256), buf)
+    assert y.shape == (n_e, c, 48)
+    assert (RQ.LAUNCHES - before[0], G.LAUNCHES - before[1]) == (1, n_e)
+    assert [name for name, _ in calls] == ["rowwise_quantize"] + ["muxq_gemm"] * n_e
+    q_args = calls[0][1]
+    assert q_args[5:8] == (n_e * c, 256, k_pad)          # M, K in, K out
+    q_ptr, s_ptr = q_args[3], q_args[4]
+    for e, (_, a) in enumerate(calls[1:]):
+        assert a[0] == q_ptr + e * c * k_pad             # expert e's codes
+        assert a[1] == buf["w_int"][e].data_ptr()        # its own slab
+        assert a[3] == s_ptr + e * c * 4                 # its rows' scales
+        assert a[4] == buf["sw"][e].data_ptr()           # its sw row
+        assert a[6:10] == (c, 48, k_pad, 64)             # M, N, K, bk
 
 
 def test_fused_dynamic_outliers_cannot_pack():

@@ -294,3 +294,15 @@ def test_real_cpu_run_for_every_dense_arch(tmp_path, arch):
                    "--device", "cpu", "--max-new", "3", "--json-out",
                    str(report)]) == 0
     assert json.loads(report.read_text())["report"]["tokens_out"] == 6
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "dbrx-132b"])
+def test_real_cpu_run_for_the_moe_archs(tmp_path, arch):
+    """``--arch`` takes the reference's MoE decoders: the reduced config
+    initializes, calibrates, packs its per-expert sites and serves on the
+    fused path."""
+    report = tmp_path / "serve.json"
+    assert L.main(["--arch", arch, "--quant", "muxq", "--backend", "fused",
+                   "--device", "cpu", "--max-new", "3", "--json-out",
+                   str(report)]) == 0
+    assert json.loads(report.read_text())["report"]["tokens_out"] == 6

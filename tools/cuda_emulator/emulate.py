@@ -174,6 +174,11 @@ def smoke() -> int:
             ('get_config("gemma2-9b")', 'get_config("gemma2-9b", reduced=True)'),
             ("wide = {a: get_config(a) for a in WIDE_ARCHS}",
              "wide = {a: get_config(a, reduced=True) for a in WIDE_ARCHS}"),
+            ("moe_wide = {a: get_config(a) for a in MOE_ARCHS}",
+             "moe_wide = {a: get_config(a, reduced=True) for a in MOE_ARCHS}"),
+            ('get_config("llama4-scout-17b-a16e")',
+             'get_config("llama4-scout-17b-a16e", reduced=True)'),
+            ('get_config("dbrx-132b")', 'get_config("dbrx-132b", reduced=True)'),
             ("WINDOW_SPAN = 600 ", "WINDOW_SPAN = 24 "),
             ("fb, fs, fh, fkv, fdh = 1, 2048, 14, 2, 64",
              "fb, fs, fh, fkv, fdh = 1, 160, 14, 2, 64"),
