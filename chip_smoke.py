@@ -114,12 +114,32 @@ its seconds):
    the residual branches scaled down and the head read as the
    embedding's transpose, so that the greedy stream repeats and drafts
    match.
-16. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
+16. Tensor-parallel serving over ``torch.distributed``, every rank a
+   spawned gloo process on this one card (NCCL refuses two ranks on one
+   device), the artifacts of phases 5, 10 and 12 handed to the ranks
+   (CUDA tensors by IPC; nothing calibrated again): gpt2-small at full
+   width on int8 pages at tp = 2 and 4 (6 and 3 of its 12 heads a rank),
+   gemma2-9b at full width (2 layers) on int4 pages with n-gram
+   speculation at tp = 2 (4 KV heads, 8 q heads and 128 000 head columns
+   a rank), and qwen2-0.5b (2 KV heads) at tp = 4, the replicated
+   fallback.  Every rank's stream must equal the single-device serve's
+   (phases 5, 12 and 10), with the same step, speculation and
+   prefix-sharing counters; the pool holds 1/tp of the global bytes a
+   rank where the heads shard (all of them on the fallback); every step
+   launches one paged kernel a layer; peak device memory by rank.  A
+   rank's LM-head columns against the full head's matmul at gpt2's and
+   gemma2's heads (bit-equal, or within LOGIT_RTOL of the logit scale);
+   the paged kernel timed cold at a rank's shapes (gpt2 decode on 6
+   heads, beside SDPA; gemma2 decode on 4 KV heads), planned for the
+   model's heads; one gloo ``all_reduce`` of a CUDA tensor timed in each
+   rank at 16 KB, 1 MB and 16 MB.
+17. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
 ``launches`` in the JSON line counts the launches of the full-width
-serving runs of phases 5, 8, 10, 11, 12, 14 and 15 (each run starts from
-zero counts); the traced serve of phase 6 and the launcher's reduced-width run
+serving runs of phases 5, 8, 10, 11, 12, 14 and 15 and of every rank of
+phase 16 (each run starts from zero counts); the traced serve of phase 6
+and the launcher's reduced-width run
 of phase 9 keep their own counts in ``chip_smoke.json``.  ``flash_attention`` is on no
 serving path and has 0.  It imports nothing of JAX or of the
 reference package.  Details of every measurement also go to
@@ -196,6 +216,7 @@ G9_LAYERS = 2               # gemma2-9b at 2 of 42: one local/global period
 MOE_ARCHS = ("llama4-scout-17b-a16e", "dbrx-132b")
 MOE_L4_LAYERS = 2           # llama4-scout-17b-a16e at 2 of its 48 layers
 MOE_DBRX_LAYERS = 1         # dbrx-132b at 1 of its 40 layers
+TP_TIMEOUT_S = 600.0        # phase 16: a world of ranks, and each collective
 
 
 def smi_line() -> str:
@@ -301,6 +322,93 @@ class Phases:
         self.report["phase_s"][name] = t - self.t0
         print(f"phase {name}: {t - self.t0:.1f} s", flush=True)
         self.t0 = t
+
+
+def tp_rank(rank, tp, src, device, jobs):
+    """Phase 16's rank ``rank`` of ``tp`` (a spawned process of a gloo
+    group): for each job (label, config, artifact, engine kwargs, prompts,
+    tokens per request), build a ``tp``-way engine on ``device``, set the
+    launch counts to 0, serve, and read them.  Every step's paged launches
+    are counted on their own (one per layer expected).  Returns, per job,
+    the streams, the report's counters, the counts, the pool's shard
+    accounting, the serve's seconds and this process's peak device
+    memory; then the time of one ``all_reduce`` at three sizes."""
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.kernels import muxq_gemm as G
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import quantize as RQ
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False    # as in main()
+    outs = []
+    for label, c, served, kw, prompts, max_new in jobs:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+        engine = ServeEngine(c, served, **kw, device=dev, tp=tp)
+        per_step = []
+
+        def counted(step):
+            def fn(*a):
+                before = sum(PA.MODE_LAUNCHES.values())
+                out = step(*a)
+                per_step.append(sum(PA.MODE_LAUNCHES.values()) - before)
+                return out
+            return fn
+        engine._prefill_pool, engine._decode_pool, engine._verify_pool = (
+            counted(engine._prefill_pool), counted(engine._decode_pool),
+            counted(engine._verify_pool))
+        reqs = [Request(p, max_new_tokens=max_new) for p in prompts]
+        RQ.LAUNCHES = G.LAUNCHES = 0
+        for key in PA.MODE_LAUNCHES:
+            PA.MODE_LAUNCHES[key] = 0
+        if on_card:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        if on_card:
+            torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        counts = {"rowwise_quantize": RQ.LAUNCHES, "muxq_gemm": G.LAUNCHES,
+                  **{f"paged_attention[{k}]": n
+                     for k, n in PA.MODE_LAUNCHES.items()},
+                  "flash_attention": 0}
+        rep = engine.metrics.report()
+        outs.append({
+            "label": label, "streams": [r.out_tokens for r in reqs],
+            "report": {k: rep[k] for k in (
+                "tokens_out", "decode_steps", "prefill_steps",
+                "spec_verify_steps", "spec_proposed", "spec_accepted",
+                "prefix_hits", "cow_copies", "kv_shards", "cache_bytes",
+                "cache_bytes_per_shard")},
+            "counts": counts, "paged_per_step": per_step,
+            "heads_sharded": engine.pool.heads_sharded,
+            "cache_bytes": engine.pool.cache_bytes(),
+            "per_shard": engine.pool.cache_bytes_per_shard(),
+            "seconds": secs,
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                         if on_card else None)})
+        del engine
+    # the collective alone: one all_reduce of the sizes a step sends (a
+    # layer's head merge, a decode step's and a prefill chunk's logits),
+    # synchronized, the mean of 10 after 3 warm-up calls
+    import torch.distributed as dist
+    cost = {}
+    for nbytes in (16 << 10, 1 << 20, 16 << 20):
+        t = torch.ones(nbytes // 4, device=dev)
+        for i in range(13):
+            if i == 3:
+                if on_card:
+                    torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+            dist.all_reduce(t)
+            if on_card:
+                torch.cuda.synchronize(dev)
+        cost[nbytes] = (time.perf_counter() - t0) * 1e3 / 10
+    outs.append({"allreduce_ms": cost})
+    return outs
 
 
 def main() -> int:
@@ -639,11 +747,12 @@ def main() -> int:
     page_cost = {"fp": lambda ksz: 2 * dh * ksz, "int8": lambda ksz: 2 * (dh + 4),
                  "int4": lambda ksz: 2 * (dh // 2 + 2)}
 
-    def paged_timing(mode, sq, heads, kvh, pos_list, label):
+    def paged_timing(mode, sq, heads, kvh, pos_list, label, plan_kvh=None):
         """The paged kernel at a serving shape: one slot per entry of
         ``pos_list`` (its position), with 128-position tables; bound from
         the pages these positions read and the (query, key) pairs the
-        causal mask allows."""
+        causal mask allows.  ``plan_kvh``: the KV heads the kernel's split
+        plan is made for (a tensor-parallel rank's: the model's)."""
         (q, kp, vp, _, _), kw = paged_case(sq, mode, 7 + sq, heads=heads,
                                            kvh=kvh, qdt=torch.float32)
         if mode == "fp":
@@ -678,7 +787,8 @@ def main() -> int:
         qpos = pos[:, None] + torch.arange(sq, device=dev)[None]
         allow = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
         qs = q.transpose(1, 2)
-        return {"fn": lambda: PA.paged_attention_decode(*args, **kw),
+        return {"fn": lambda: PA.paged_attention_decode(
+                    *args, **kw, plan_kv_heads=plan_kvh),
                 "plain_ms": time_ms(torch, lambda: PA.paged_attention_plain(
                     *args, **kw), flush)[0],
                 "library_ms": time_ms(torch, lambda: sdpa(
@@ -1019,14 +1129,24 @@ def main() -> int:
           f"int8 and int4 pages, sq 1/4/32: {n_paged} cases within "
           "tolerance", flush=True)
 
-    def wide_paged_timing(arch, mode, sq, pos_list, label):
+    def wide_paged_timing(arch, mode, sq, pos_list, label, tp=1):
         """The paged kernel at a wide shape, beside its plain version and
         SDPA on the gathered, dequantized K/V (none where a softcap makes
         SDPA another function); bound from the pages the rows' windows
-        read and the (query, key) pairs they allow."""
+        read and the (query, key) pairs they allow.  ``tp`` > 1: rank 0's
+        heads of a tp-way serve (its pages, scales and redistribution rows
+        contiguous), the split plan made for all of the model's heads."""
         c = wide[arch]
         dh_, kvh_, heads_ = c.head_dim, c.n_kv_heads, c.n_heads
         args, kw = wide_paged_case(c, mode, sq, pos_list, 7 + sq)
+        if tp > 1:
+            kvh_, heads_ = kvh_ // tp, heads_ // tp
+            q, kp, vp, table, pos = args
+            args = (q[:, :, :heads_].contiguous(), kp[:, :, :kvh_].contiguous(),
+                    vp[:, :, :kvh_].contiguous(), table, pos)
+            kw = {n_: (t_[:kvh_] if n_.endswith("redist") else t_[:, :, :kvh_]
+                       ).contiguous() if torch.is_tensor(t_) else t_
+                  for n_, t_ in kw.items()}
         q, kp, vp, table, pos = args
         w = kw.get("window", 1 << 30)
         pairs = sum(min(p + i + 1, w) for p in pos_list for i in range(sq))
@@ -1035,7 +1155,7 @@ def main() -> int:
         nbytes = (n_read * ps * kvh_ * page_cost[mode](kp.element_size())
                   + 2 * q.numel() * 4 + table.numel() * 4 + 16
                   + (2 * kvh_ * dh_ * 4 if mode == "int4" else 0))
-        row = {"kernel": f"paged_attention[{mode}]", "model": arch,
+        row = {"kernel": f"paged_attention[{mode}]", "model": arch, "tp": tp,
                "shape": f"{label}: b={len(pos_list)} sq={sq} h={heads_} "
                         f"kvh={kvh_} dh={dh_} {mode} pages, {n_read * ps} "
                         f"key positions read",
@@ -1061,7 +1181,8 @@ def main() -> int:
             qs = q.transpose(1, 2)
             row["library_ms"] = time_ms(torch, lambda: sdpa(
                 qs, kd, vd, attn_mask=allow), flush)[0]
-        fn = lambda: PA.paged_attention_decode(*args, **kw)
+        fn = lambda: PA.paged_attention_decode(*args, **kw,
+                                               plan_kv_heads=c.n_kv_heads)
         row["ms"], row["spread_ms"] = time_ms(torch, fn, flush)
         row["warm_ms"], _ = time_ms(torch, fn, None)
         row["bound_ms"], row["bound_by"] = bound(
@@ -1073,6 +1194,7 @@ def main() -> int:
               f"; warm {row['warm_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {row['bound_ms']:.5f} ms "
               f"({row['bound_by']})  [{card}]", flush=True)
+        return row
 
     g9w = wide["gemma2-9b"].window_size
     wide_paged_timing("qwen2.5-14b", "int8", 1, [127, 100, 64, 40],
@@ -1187,7 +1309,10 @@ def main() -> int:
                        "decode_steps": rep["decode_steps"],
                        "prefill_steps": rep["prefill_steps"],
                        "prefill_chunks": rep["prefill_chunks"],
-                       "outlier_runs": runs}
+                       "prefix_hits": rep["prefix_hits"],
+                       "cache_bytes": rep["cache_bytes"],
+                       "outlier_runs": runs,
+                       "streams": [r.out_tokens for r in greqs]}
 
     # where a serving step's time goes: the same 4 requests x 8 tokens twice,
     # first on the host clock alone, then under the profiler for the kernel
@@ -1325,7 +1450,7 @@ def main() -> int:
         "events": len(recorder.events), "compile_events": n_compile,
         "trace_bytes": trace_path.stat().st_size, "quality": snap,
         "launches": tlaunch}
-    del engine, tengine, art, cal_pool
+    del engine, tengine, cal_pool   # the artifact is served again in phase 16
     torch.cuda.empty_cache()
     phases.done("observability (gpt2-small traced)")
 
@@ -1980,7 +2105,7 @@ def main() -> int:
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30, **gates9,
         "report": {k_: v_ for k_, v_ in rep9.items() if k_ != "decode_buckets"},
         "streams": [r.out_tokens for r in r9]}
-    del p9, a9, c9, e9
+    del p9, c9, e9                  # a9 (as served) is served again in phase 16
     torch.cuda.empty_cache()
     phases.done("serve gemma2-9b")
 
@@ -2200,7 +2325,152 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("serve dbrx-132b")
 
-    # -- 16. result lines ---------------------------------------------------------
+    # -- 16. tensor-parallel serving: gloo ranks sharing the one card -----------
+    # Every rank is a spawned process on this card (NCCL refuses two ranks on
+    # one device) holding the whole replicated weights, its kvh / tp KV heads
+    # and V_pad / tp head columns; the artifacts built above travel to the
+    # ranks once (CUDA tensors by IPC), nothing is calibrated again.  The
+    # streams must equal the single-device serves' and every rank rank 0's.
+    def tp_world(tp, jobs):
+        t0 = time.perf_counter()
+        outs = run_ranks(tp_rank, tp, (tp, str(ROOT / "src"), str(dev), jobs),
+                         backend="gloo", timeout_s=TP_TIMEOUT_S)
+        return outs, time.perf_counter() - t0
+
+    def tp_gate(outs, tp, idx, want, want_rep, sharded, n_layers):
+        """The checks of job ``idx`` on every rank; its launches join the
+        main path's counts, one entry a rank."""
+        rows = [o[idx] for o in outs]
+        label = rows[0]["label"]
+        shards = tp if sharded else 1
+        for rank, res in enumerate(rows):
+            r_ = res["report"]
+            where = f"{label} tp {tp} rank {rank}"
+            if res["streams"] != want:
+                raise AssertionError(f"{where}: the stream differs from the "
+                                     "tp = 1 serve's")
+            for k_, v_ in want_rep.items():
+                if r_[k_] != v_:
+                    raise AssertionError(f"{where}: {k_} {r_[k_]} != {v_} at "
+                                         "tp = 1")
+            if res["heads_sharded"] != sharded or r_["kv_shards"] != shards:
+                raise AssertionError(f"{where}: {r_['kv_shards']} KV shards, "
+                                     f"expected {shards}")
+            if res["per_shard"] * shards != res["cache_bytes"]:
+                raise AssertionError(f"{where}: {res['per_shard']} bytes a "
+                                     f"shard of {res['cache_bytes']}")
+            if any(n_ != n_layers for n_ in res["paged_per_step"]):
+                raise AssertionError(f"{where}: paged launches per step "
+                                     f"{res['paged_per_step']}, expected "
+                                     f"{n_layers} (one a layer)")
+            for key in ("rowwise_quantize", "muxq_gemm"):
+                if res["counts"][key] <= 0:
+                    raise AssertionError(f"{where} never launched {key}")
+            main_runs[f"{label} tp {tp} rank {rank}"] = res["counts"]
+        r0 = rows[0]
+        print(f"serve {label} at tp {tp} (gloo ranks on one card): every "
+              f"rank's stream equals the tp = 1 stream; {shards} KV "
+              f"shard(s), {r0['per_shard']} of {r0['cache_bytes']} pool "
+              f"bytes a rank; {len(r0['paged_per_step'])} steps, "
+              f"{n_layers} paged launch(es) each; serve seconds by rank "
+              f"{[round(x['seconds'], 3) for x in rows]}; peak device memory "
+              f"by rank {[x['peak_gib'] for x in rows]} GiB; launches rank 0 "
+              f"{r0['counts']}  [{card}]", flush=True)
+        return [{k_: v_ for k_, v_ in x.items() if k_ != "streams"}
+                for x in rows]
+
+    def head_split(head, d_, label):
+        """The vocabulary split on this card's GEMMs: a rank's
+        x @ W[:, cols] against the same columns of x @ W."""
+        out = {}
+        for m in (4, 128):
+            x = torch.randn(m, d_, generator=gen).to(dev)
+            full = x @ head
+            scale = float(full.abs().max())
+            for tp in (2, 4):
+                vl = head.shape[1] // tp
+                errs = [float((x @ head.narrow(1, r * vl, vl)
+                               - full[:, r * vl:(r + 1) * vl]).abs().max())
+                        for r in range(tp)]
+                out[f"m{m}_tp{tp}"] = max(errs)
+                if max(errs) > LOGIT_RTOL * scale:
+                    raise AssertionError(f"{label} head split at M {m}, tp "
+                                         f"{tp}: {max(errs)} off the full "
+                                         f"matmul (scale {scale})")
+        print(f"head split {label} [{d_}, {head.shape[1]}]: max abs gap of a "
+              f"rank's columns from the full matmul {out} (0 = bit-equal)  "
+              f"[{card}]", flush=True)
+        return out
+
+    from repro_torch.parallel.ranks import run_ranks
+    g9_kw = dict(max_batch=4, s_max=256, prefill_chunk=32, kv_mode="int4",
+                 spec_mode="ngram", spec_k=4)
+    gpt2_kw = dict(max_batch=4, s_max=256, prefill_chunk=32, kv_mode="int8")
+    q2_kw = dict(max_batch=4, s_max=256, prefill_chunk=32, kv_mode="int4",
+                 spec_mode="ngram", spec_k=4)
+    jobs_of = {
+        2: [("gpt2-small int8", cfg, art, gpt2_kw, prompts, 16),
+            ("gemma2-9b int4 spec", g9, a9, g9_kw, qprompts, 16)],
+        4: [("gpt2-small int8", cfg, art, gpt2_kw, prompts, 16),
+            ("qwen2-0.5b int4 spec", qcfg, qart, q2_kw, qprompts, 16)]}
+    tp_rep = {"worlds": {}}
+    spec_keys = ("decode_steps", "prefill_steps", "spec_verify_steps",
+                 "spec_proposed", "spec_accepted", "prefix_hits", "cow_copies",
+                 "tokens_out", "cache_bytes")
+    for tp in (2, 4):
+        outs, wall = tp_world(tp, jobs_of[tp])
+        tp_rep["worlds"][tp] = {"wall_s": wall, "jobs": {}}
+        w_ = tp_rep["worlds"][tp]["jobs"]
+        w_["gpt2-small int8"] = tp_gate(
+            outs, tp, 0, report["serve"]["streams"],
+            {k_: report["serve"][k_] for k_ in (
+                "tokens_out", "decode_steps", "prefill_steps", "prefix_hits",
+                "cache_bytes")}, True, cfg.n_layers)
+        if tp == 2:
+            w_["gemma2-9b int4 spec"] = tp_gate(
+                outs, tp, 1, report["serve_gemma2_9b"]["streams"],
+                {k_: report["serve_gemma2_9b"]["report"][k_]
+                 for k_ in spec_keys}, True, g9.n_layers)
+        else:
+            w_["qwen2-0.5b int4 spec"] = tp_gate(
+                outs, tp, 1, [r.out_tokens for r in qreqs],
+                {k_: qrep[k_] for k_ in spec_keys}, False, qcfg.n_layers)
+        cost = [o[-1]["allreduce_ms"] for o in outs]
+        tp_rep["worlds"][tp]["allreduce_ms"] = cost
+        print(f"tp {tp} world: {wall:.1f} s from spawn to the last rank's "
+              f"exit; one gloo all_reduce of a CUDA tensor (16 KB, 1 MB, "
+              f"16 MB), ms by rank: "
+              f"{[[round(c[n_], 3) for n_ in sorted(c)] for c in cost]}  "
+              f"[{card}]", flush=True)
+    tp_rep["head_split"] = {   # both heads tied: the embedding's transpose
+        "gpt2": head_split(art.params["embed"].T, cfg.d_model, "gpt2-small"),
+        "gemma2": head_split(a9.params["embed"].T, g9.d_model, "gemma2-9b")}
+    # the paged kernel at a rank's shapes, cold, planned for the model's heads
+    gpt2_rank = paged_timing("int8", 1, h // 2, h // 2, [127, 100, 64, 40],
+                             "gpt2 decode, rank of tp 2", plan_kvh=h)
+    fn_ = gpt2_rank.pop("fn")
+    gpt2_rank["ms"], gpt2_rank["spread_ms"] = time_ms(torch, fn_, flush)
+    gpt2_rank.update(kernel="paged_attention[int8]", model="gpt2-small", tp=2)
+    report["timings"].append(gpt2_rank)
+    print(f"time paged_attention[int8] [{gpt2_rank['shape']}]: kernel "
+          f"{gpt2_rank['ms']:.4f} ms (spread {gpt2_rank['spread_ms'][0]:.4f}-"
+          f"{gpt2_rank['spread_ms'][1]:.4f}), plain "
+          f"{gpt2_rank['plain_ms']:.4f} ms, SDPA {gpt2_rank['library_ms']:.4f}"
+          f" ms, bound {gpt2_rank['bound_ms']:.6f} ms "
+          f"({gpt2_rank['bound_by']}); all 12 heads "
+          f"{timed['paged_attention[int8]']['ms']:.4f} ms  [{card}]",
+          flush=True)
+    g9_rank = wide_paged_timing("gemma2-9b", "int4", 1,
+                                [p_ - g9w for p_ in span],
+                                "gemma2-9b decode inside the window, rank of "
+                                "tp 2", tp=2)
+    tp_rep["paged_rank_timings"] = [gpt2_rank, g9_rank]
+    report["tensor_parallel"] = tp_rep
+    del art, a9
+    torch.cuda.empty_cache()
+    phases.done("tensor-parallel serving")
+
+    # -- 17. result lines ---------------------------------------------------------
     pa_src = ("src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:161")
     sources = {"rowwise_quantize": ("src/repro_torch/csrc/rowwise_quantize.cu",

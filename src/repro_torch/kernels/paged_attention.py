@@ -20,7 +20,11 @@ The kernel's grid is (KV split, row tile, slot x KV head): ``plan_splits``
 cuts a slot's ``sq * g`` query rows into tiles of ``ROW_TILE`` and its page
 table into splits, from the table's width alone (``pos`` stays on the
 card).  With several splits the C call launches a second, merging pass
-over f32 partials in scratch that the wrapper allocates.
+over f32 partials in scratch that the wrapper allocates.  Under
+tensor-parallel serving a rank's pages hold only its KV heads; the caller
+passes the model's global KV-head count as ``plan_kv_heads``, so the plan
+(and with it every (slot, head) block's order of sums) is the one the
+whole model gets on one device.
 """
 from __future__ import annotations
 
@@ -156,7 +160,7 @@ def workspace_floats(b: int, kvh: int, rows: int, dh: int, n_row_tiles: int,
 
 
 def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
-            k_redist, v_redist, window, softcap):
+            k_redist, v_redist, window, softcap, plan_kv_heads=None):
     squeeze = q.dim() == 3
     if squeeze:
         q = q[:, None]
@@ -197,8 +201,8 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
     q = q.contiguous()
     out = torch.empty_like(q)
     n_table = page_table.shape[1]
-    n_rt, pps, n_split = plan_splits(b, kvh, sq * (h // kvh), n_table, ps,
-                                     dh, build.sm_count(q.device))
+    n_rt, pps, n_split = plan_splits(b, plan_kv_heads or kvh, sq * (h // kvh),
+                                     n_table, ps, dh, build.sm_count(q.device))
     ws = None if n_split == 1 else torch.empty(
         workspace_floats(b, kvh, sq * (h // kvh), dh, n_rt, n_split),
         dtype=torch.float32, device=q.device)
@@ -223,14 +227,17 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
 def paged_attention_decode(q, k_pages, v_pages, page_table, pos, *,
                            k_scale=None, v_scale=None, k_redist=None,
                            v_redist=None, window=None,
-                           softcap: Optional[float] = None):
+                           softcap: Optional[float] = None,
+                           plan_kv_heads: Optional[int] = None):
     """Impl-dispatching entry point.  q [b, h, dh] (decode) or
     [b, sq, h, dh] (verify block / prefill chunk, ``pos`` the first row's
-    position)."""
+    position).  ``plan_kv_heads`` (default: the pages' own KV heads) is
+    the head count the kernel's split plan is made for; the plain version
+    does not split."""
     if _PAGED_IMPL == "ref" or not q.is_cuda:
         return paged_attention_plain(q, k_pages, v_pages, page_table, pos,
                                      k_scale=k_scale, v_scale=v_scale,
                                      k_redist=k_redist, v_redist=v_redist,
                                      window=window, softcap=softcap)
     return _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
-                   k_redist, v_redist, window, softcap)
+                   k_redist, v_redist, window, softcap, plan_kv_heads)

@@ -14,11 +14,23 @@ and (with ``--obs``) the quality snapshot as JSON.  ``--trace-out PATH``
 records the run's request/step lifecycle and writes a Chrome-trace /
 Perfetto JSON; ``--obs`` turns on the quant-quality observers (per-site
 activation stats on eager quantized matmuls, KV-page saturation and
-outlier drift sampled from the pool between steps).  ``--tp`` above 1
-(tensor-parallel serving) is refused: the port serves on one device."""
+outlier drift sampled from the pool between steps).
+
+``--tp N`` (N > 1) serves tensor-parallel: the model is built and
+quantized once in this process, then N ranks are spawned
+(``parallel.ranks.run_ranks``), each serving the same requests with its
+``kvh / N`` KV heads and ``V_pad / N`` LM-head columns.
+``--dist-backend`` picks the collectives' transport: ``nccl`` (the
+default on a CUDA device) serves rank r on ``cuda:r`` and needs N visible
+cards; ``gloo`` (the default on ``--device cpu``) serves every rank on
+``--device``, so several ranks can share one card.  Rank 0 alone prints
+the summary and writes ``--json-out`` and ``--trace-out``; every rank's
+streams must equal rank 0's."""
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 from pathlib import Path
 
@@ -32,6 +44,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
 from repro_torch.obs.quality import QualityObserver
 from repro_torch.obs.trace import TraceRecorder
+from repro_torch.parallel.ranks import BACKENDS, run_ranks
 from repro_torch.quantize import PACK_TARGETS, quantize_model
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -80,9 +93,20 @@ def main(argv=None) -> int:
                     help="speculative block width: 1 committed token + up "
                          "to spec-k - 1 drafted tokens per verify step")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel serving mesh size; the port "
-                         "serves on one device (1, the default) and refuses "
-                         "more")
+                    help="tensor-parallel serving group size: N ranks "
+                         "shard the KV pages (and int8/int4 scales + int4 "
+                         "redistribution rows) on the KV-head axis and the "
+                         "LM head by vocabulary columns; 1 (default) serves "
+                         "in this process with no group.  A model whose "
+                         "kv-head count N doesn't divide falls back to "
+                         "replicated placement (no capacity win, same "
+                         "outputs)")
+    ap.add_argument("--dist-backend", default=None, choices=list(BACKENDS),
+                    help="transport of the --tp ranks' collectives: nccl "
+                         "(default on a CUDA device; rank r serves on "
+                         "cuda:r) or gloo (default on --device cpu; every "
+                         "rank serves on --device, so ranks can share one "
+                         "card)")
     ap.add_argument("--max-batch", type=int, default=2,
                     help="slot-pool size (concurrent sequences)")
     ap.add_argument("--s-max", type=int, default=128,
@@ -113,12 +137,22 @@ def main(argv=None) -> int:
                     help="torch device to serve on (default: cuda)")
     args = ap.parse_args(argv)
 
+    device = torch.device(args.device)
+    backend = args.dist_backend or ("nccl" if device.type == "cuda"
+                                    else "gloo")
     if args.tp < 1:
         raise SystemExit(f"--tp must be >= 1, got {args.tp}")
-    if args.tp > 1:
-        raise SystemExit(
-            f"--tp {args.tp}: tensor-parallel serving is not ported to "
-            "repro_torch yet (ROADMAP Queue 1, item 9); serve with --tp 1")
+    if args.tp > 1 and backend == "nccl":
+        if device.type != "cuda":
+            raise SystemExit(
+                f"--dist-backend nccl serves rank r on cuda:r, not on "
+                f"--device {args.device}: use --dist-backend gloo")
+        if args.tp > torch.cuda.device_count():
+            raise SystemExit(
+                f"--tp {args.tp}: nccl needs one CUDA device a rank, but "
+                f"{torch.cuda.device_count()} device(s) are visible — lower "
+                "--tp, or pass --dist-backend gloo to run every rank on "
+                "--device")
     if args.quant != "fp" and args.backend == "fused":
         if args.quant == "llm_int8":
             raise SystemExit("llm_int8 has no fused kernel realization")
@@ -128,54 +162,80 @@ def main(argv=None) -> int:
                 "rewrites fused routing to the fake backend — it cannot "
                 "serve --backend fused (use 'both' or 'fused')")
 
-    device = torch.device(args.device)
     cfg = get_config(args.arch, reduced=True)
     params = T.init_params(cfg, seed=0, device=device)
     kv_mode = None if args.kv_mode == "auto" else args.kv_mode
-    recorder = TraceRecorder() if args.trace_out else None
-    quality = QualityObserver() if args.obs else None
     engine_kw = dict(max_batch=args.max_batch, s_max=args.s_max,
                      kv_mode=kv_mode, page_size=args.page_size,
                      n_pages=args.n_pages, prefill_chunk=args.prefill_chunk,
                      prefill_slots=args.prefill_slots,
                      prefill_aging=args.prefill_aging,
                      cache_dtype=torch.bfloat16,
-                     spec_mode=args.spec_mode, spec_k=args.spec_k,
-                     recorder=recorder, quality=quality, device=device)
-    # activation seam: eager quantized matmuls report per-site stats (the
-    # engine's step calls run with observation suspended)
-    prev_obs = dispatch.set_quality_observer(quality)
-    try:
-        engine, reqs = _serve(args, cfg, params, engine_kw)
-    finally:
-        dispatch.set_quality_observer(prev_obs)
-    _report(args, engine, reqs, recorder, quality)
+                     spec_mode=args.spec_mode, spec_k=args.spec_k)
+    if args.tp == 1:
+        # activation seam: eager quantized matmuls report per-site stats
+        # (the engine's step calls run with observation suspended)
+        quality = QualityObserver() if args.obs else None
+        prev_obs = dispatch.set_quality_observer(quality)
+        try:
+            served = _served(args, cfg, params, device)
+            outs = [_serve_rank(0, args, cfg, served, engine_kw, device,
+                                quality)]
+        finally:
+            dispatch.set_quality_observer(prev_obs)
+    else:
+        served = _served(args, cfg, params, device)
+        outs = run_ranks(_serve_rank, args.tp,
+                         (args, cfg, served, engine_kw,
+                          None if backend == "nccl" else device, None),
+                         backend=backend)
+    print(outs[0]["summary"], end="")
+    diverged = [r for r, o in enumerate(outs)
+                if o["streams"] != outs[0]["streams"]]
+    if diverged:
+        raise SystemExit(f"--tp {args.tp}: the streams of rank(s) {diverged} "
+                         "differ from rank 0's")
     return 0
 
 
-def _serve(args, cfg, params, engine_kw):
-    """Build the engine (quantizing first, unless --quant fp) and serve the
-    prompts; returns (engine, requests)."""
+def _served(args, cfg, params, device):
+    """What the engine serves: the raw params under --quant fp, else the
+    artifact quantized from them (built once, whatever --tp)."""
     if args.quant == "fp":
-        engine = ServeEngine(cfg, params, **engine_kw)
-    else:
-        spec = QuantConfig(method=args.quant, act_granularity="per_token",
-                           outlier_mode="static")
-        if args.backend == "fused":    # the packed kernel is per-channel
-            spec = spec.replace(backend="fused",
-                                weight_granularity="per_channel")
-        policy = SitePolicy.uniform(spec)
-        pipe = TokenPipeline(PipelineConfig(seq_len=64, global_batch=2))
-        artifact = quantize_model(cfg, params,
-                                  [next(pipe) for _ in range(2)], policy,
-                                  pack_target=args.pack_target,
-                                  device=engine_kw["device"])
-        if args.save_artifact:
-            print(f"artifact saved to {artifact.save(args.save_artifact)}")
-        engine = ServeEngine(cfg, artifact, **engine_kw)
+        return params
+    spec = QuantConfig(method=args.quant, act_granularity="per_token",
+                       outlier_mode="static")
+    if args.backend == "fused":    # the packed kernel is per-channel
+        spec = spec.replace(backend="fused",
+                            weight_granularity="per_channel")
+    policy = SitePolicy.uniform(spec)
+    pipe = TokenPipeline(PipelineConfig(seq_len=64, global_batch=2))
+    artifact = quantize_model(cfg, params, [next(pipe) for _ in range(2)],
+                              policy, pack_target=args.pack_target,
+                              device=device)
+    if args.save_artifact:
+        print(f"artifact saved to {artifact.save(args.save_artifact)}")
+    return artifact
+
+
+def _serve_rank(rank, args, cfg, served, engine_kw, device, quality):
+    """Serve the prompts as rank ``rank`` of ``--tp`` (on ``cuda:rank``
+    when ``device`` is None, the nccl layout) and report from rank 0.
+    Returns {"streams", "summary"}: the summary is what rank 0's report
+    printed, for the caller to print."""
+    if args.tp > 1:
+        device = device or torch.device("cuda", rank)
+        quality = QualityObserver() if args.obs else None
+    recorder = TraceRecorder() if args.trace_out else None
+    engine = ServeEngine(cfg, served, **engine_kw, recorder=recorder,
+                         quality=quality, device=device, tp=args.tp)
     reqs = [Request(p, max_new_tokens=args.max_new) for p in args.prompts]
     engine.generate(reqs)
-    return engine, reqs
+    out = io.StringIO()
+    if rank == 0:
+        with contextlib.redirect_stdout(out):
+            _report(args, engine, reqs, recorder, quality)
+    return {"streams": [r.out_tokens for r in reqs], "summary": out.getvalue()}
 
 
 def _report(args, engine, reqs, recorder, quality) -> None:

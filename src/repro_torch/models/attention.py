@@ -17,6 +17,12 @@ holds one copy of every page; the reference's functional ``.at[].set``
 would copy the whole pool per write).  Positions that must not land in a
 slot's pages (idle slots, chunk padding, prefix-shared positions) route to
 the reserved scratch page 0, which is never read back for a live row.
+
+Under tensor-parallel serving (an active ``serve_sharding.HeadShard``)
+each rank keeps only its contiguous run of KV heads and their q heads
+after the projection, writes and reads only its own pages, and merges the
+heads back with the zero-pad all-reduce before ``attn_out``, which needs
+the whole channel vector for its per-token activation quantization.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models.common import ModelConfig, apply_rope, softcap
+from repro_torch.parallel import serve_sharding as TP
 from repro_torch.serve import kvq
 
 NEG_INF = -1e9
@@ -52,11 +59,15 @@ def _split_qkv(cfg: ModelConfig, qkv: torch.Tensor):
     return q, k, v
 
 
-def _project_qkv(cfg, p, ctx, x, positions):
+def _project_qkv(cfg, p, ctx, x, positions, shard=None):
+    """QKV projection and RoPE; with a ``shard``, only this rank's heads
+    (views of the projection) go on."""
     qkv = ctx("attn_qkv", x, p["wqkv"])
     if "bqkv" in p:
         qkv = qkv + p["bqkv"].to(x.dtype)
     q, k, v = _split_qkv(cfg, qkv)
+    if shard is not None:
+        q, k, v = (TP.slice_heads(t, shard) for t in (q, k, v))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
 
@@ -114,11 +125,16 @@ def _scatter(cache: dict, parts: dict, page_idx: torch.Tensor,
         cache[n][page_idx, offset] = val.to(cache[n].dtype)
 
 
-def _read(cfg, window_flag, q, cache, page_table, pos, quantizer):
+def _read(cfg, window_flag, q, cache, page_table, pos, quantizer, shard):
+    """The paged read of this rank's heads, merged back to every head
+    under a shard.  The kernel's split plan takes the global KV-head count,
+    so each (slot, head) block sums in the same order at every tp."""
     win = cfg.window_size if window_flag else PA.NO_WINDOW
-    return PA.paged_attention_decode(
+    o = PA.paged_attention_decode(
         q, cache["k"], cache["v"], page_table, pos, window=win,
-        softcap=cfg.attn_softcap, **quantizer.kernel_operands(cache))
+        softcap=cfg.attn_softcap, plan_kv_heads=cfg.n_kv_heads,
+        **quantizer.kernel_operands(cache))
+    return o if shard is None else TP.all_heads(o, cfg.n_heads, shard)
 
 
 def attention_decode_paged(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
@@ -133,12 +149,14 @@ def attention_decode_paged(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
     b = x.shape[0]
     pos, page_table = cache["pos"], cache["page_table"]
     ps = cache["k"].shape[1]
-    q, k, v = _project_qkv(cfg, p, ctx, x, pos[:, None])
+    shard = TP.active()
+    q, k, v = _project_qkv(cfg, p, ctx, x, pos[:, None], shard)
     quantizer = kvq.from_cache(cache)
     page_idx = torch.gather(page_table, 1, (pos // ps)[:, None].long())[:, 0]
     _scatter(cache, {n: t[:, 0] for n, t in quantizer.quantize(k, v).items()},
              page_idx.long(), (pos % ps).long())
-    o = _read(cfg, window_flag, q[:, 0], cache, page_table, pos, quantizer)
+    o = _read(cfg, window_flag, q[:, 0], cache, page_table, pos, quantizer,
+              shard)
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
     return ctx("attn_out", o, p["wo"]), cache
 
@@ -159,7 +177,8 @@ def attention_prefill_paged(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
     page_table = cache["page_table"]
     p_abs = start[:, None] + torch.arange(C, dtype=torch.int32,
                                           device=x.device)[None]     # [b, C]
-    q, k, v = _project_qkv(cfg, p, ctx, x, p_abs)
+    shard = TP.active()
+    q, k, v = _project_qkv(cfg, p, ctx, x, p_abs, shard)
     quantizer = kvq.from_cache(cache)
     writable = (p_abs >= w_lo[:, None]) & (p_abs < w_hi[:, None])
     logical = torch.clamp(p_abs // ps, 0, page_table.shape[1] - 1).long()
@@ -167,7 +186,7 @@ def attention_prefill_paged(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
     page_idx = torch.where(writable, page, torch.zeros_like(page))
     _scatter(cache, quantizer.quantize(k, v), page_idx.long(),
              (p_abs % ps).long())
-    o = _read(cfg, window_flag, q, cache, page_table, start, quantizer)
+    o = _read(cfg, window_flag, q, cache, page_table, start, quantizer, shard)
     o = o.reshape(b, C, cfg.n_heads * cfg.head_dim)
     return ctx("attn_out", o, p["wo"]), cache
 
@@ -191,7 +210,8 @@ def attention_verify_paged(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
     ps = cache["k"].shape[1]
     positions = pos[:, None] + torch.arange(kb, dtype=torch.int32,
                                             device=x.device)[None]   # [b, k]
-    q, k, v = _project_qkv(cfg, p, ctx, x, positions)
+    shard = TP.active()
+    q, k, v = _project_qkv(cfg, p, ctx, x, positions, shard)
     quantizer = kvq.from_cache(cache)
     logical = torch.clamp(positions // ps, 0, page_table.shape[1] - 1).long()
     page = torch.gather(page_table, 1, logical)
@@ -199,6 +219,6 @@ def attention_verify_paged(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
     page_idx = torch.where(valid, page, torch.zeros_like(page))
     _scatter(cache, quantizer.quantize(k, v), page_idx.long(),
              (positions % ps).long())
-    o = _read(cfg, window_flag, q, cache, page_table, pos, quantizer)
+    o = _read(cfg, window_flag, q, cache, page_table, pos, quantizer, shard)
     o = o.reshape(b, kb, cfg.n_heads * cfg.head_dim)
     return ctx("attn_out", o, p["wo"]), cache

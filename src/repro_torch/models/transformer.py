@@ -25,6 +25,7 @@ from repro_torch.models import mlp as M
 from repro_torch.models import moe as E
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
                                        softcap)
+from repro_torch.parallel import serve_sharding as TP
 
 
 class _Named:
@@ -132,7 +133,8 @@ def _block(cfg, lp, ctx, x, attend):
 
 def _head(cfg, params, x):
     """Final norm, the LM head (the embedding's transpose when tied, else
-    ``params["lm_head"]`` [d, V_pad]) and the final softcap."""
+    ``params["lm_head"]`` [d, V_pad]; split by vocabulary columns under
+    tensor-parallel serving) and the final softcap."""
     x = apply_norm(cfg, params["ln_f"], x)
     if cfg.tie_embeddings:
         head = params["embed"].T
@@ -141,7 +143,7 @@ def _head(cfg, params, x):
     else:
         raise ValueError(f"{cfg.name} has an untied LM head, but its params "
                          "carry no 'lm_head'")
-    logits = x @ head.to(x.dtype)
+    logits = TP.tp_logits(x, head.to(x.dtype))
     return softcap(logits, cfg.final_softcap)
 
 

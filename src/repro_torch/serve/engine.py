@@ -34,7 +34,17 @@ that first call is exactly where a jit retraces and where a CUDA-graph
 capture per bucket would be recorded; each time one grows the recorder
 gets a ``COMPILE`` event, as in ``repro/serve/engine.py``.
 
-Not ported yet: tensor parallelism.
+Tensor-parallel serving: ``tp=N`` (N > 1) runs this engine as one of N
+SPMD ranks of an initialized ``torch.distributed`` group
+(``serve_sharding.serve_group``; ``repro_torch.launch.serve --tp N``
+spawns them).  The pool keeps only this rank's KV heads, each step runs
+under ``serve_sharding.head_sharding`` (heads sliced after the QKV
+projection and merged with a zero-pad all-reduce before ``attn_out``, the
+LM head split by vocabulary columns), and every rank runs the same
+scheduler on the same inputs.  Weights stay replicated: MUXQ's per-token
+activation quantization at ``attn_out`` needs the whole channel vector.
+A kvh the group does not divide serves on a replicated pool with no
+collectives.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 from repro_torch.obs.trace import NULL_RECORDER
+from repro_torch.parallel import serve_sharding as SS
 from repro_torch.quantize import QuantArtifact
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.pool import PagePool
@@ -85,7 +96,7 @@ class ServeEngine:
                  prefill_chunk: int = 32, prefill_slots: int = 2,
                  prefill_aging: float = 1.0, spec_mode: str = "off",
                  spec_k: int = 4, recorder=None, quality=None,
-                 device="cuda"):
+                 device="cuda", tp: Optional[int] = None):
         if cfg.family not in ("dense", "moe"):
             raise ValueError(f"the engine serves dense and MoE decoders, not "
                              f"{cfg.family}")
@@ -117,22 +128,36 @@ class ServeEngine:
         self.prefill_chunk = int(prefill_chunk)
         self.prefill_slots = int(prefill_slots)
         self.prefill_aging = float(prefill_aging)
+        # tensor-parallel serving: tp > 1 joins this rank's group; the pool
+        # allocates its heads of every page array, and the steps below run
+        # under the shard unless the pool fell back to replicated placement
+        self.tp = 1 if tp is None else int(tp)
+        if self.tp < 1:
+            raise ValueError(f"tp must be >= 1, got {tp}")
+        plan = None
+        if self.tp > 1:
+            group = SS.serve_group(self.tp)
+            plan = SS.HeadShard(torch.distributed.get_rank(group), self.tp,
+                                group)
         self.pool = PagePool(cfg, max_batch, s_max, page_size=page_size,
                              n_pages=n_pages, mode=kv_mode, dtype=cache_dtype,
-                             kv_calib=kv_calib, device=self.device)
+                             kv_calib=kv_calib, device=self.device,
+                             shard=plan)
+        self._shard = plan if self.pool.heads_sharded else None
         if spec_mode not in ("off", "ngram"):
             raise ValueError(f"unknown spec_mode {spec_mode!r} "
                              "(expected 'off' or 'ngram')")
         self.spec_mode = spec_mode
         self.spec_k = int(spec_k)
-        self.metrics = ServeMetrics()
+        self.metrics = self._fresh_metrics()
         self.recorder = recorder if recorder is not None else NULL_RECORDER
         self.quality = quality
         self.decode_buckets = set()      # page-budget buckets seen (lifetime)
         self.prefill_buckets = set()     # (chunk, page) bucket pairs (lifetime)
         self.verify_buckets = set()      # (k, page) bucket pairs (lifetime)
         if self.recorder.enabled:
-            self.recorder.set_metadata(mesh_devices=1, kv_shards=1)
+            self.recorder.set_metadata(mesh_devices=self.tp,
+                                       kv_shards=self.pool.kv_shards)
 
     def _check_fused_buffers(self) -> None:
         """Fail here, not inside a step: a policy that routes this model's
@@ -176,7 +201,7 @@ class ServeEngine:
     @torch.no_grad()
     def _prefill_pool(self, tokens, kv, page_table, start, write_lo, write_hi):
         cb, pb = int(tokens.shape[1]), int(page_table.shape[1])
-        with dispatch.observation_suspended():
+        with dispatch.observation_suspended(), SS.head_sharding(self._shard):
             logits, kv = T.prefill_chunk_paged(
                 self.cfg, self.params, tokens, kv, page_table, start,
                 write_lo, write_hi, self.ctx)
@@ -187,7 +212,7 @@ class ServeEngine:
     @torch.no_grad()
     def _decode_pool(self, tokens, kv, page_table, pos):
         pb = int(page_table.shape[1])
-        with dispatch.observation_suspended():
+        with dispatch.observation_suspended(), SS.head_sharding(self._shard):
             logits, kv = T.decode_step_paged(self.cfg, self.params, tokens,
                                              kv, page_table, pos, self.ctx)
         self._first_use("decode", self.decode_buckets, pb, page_bucket=pb)
@@ -196,7 +221,7 @@ class ServeEngine:
     @torch.no_grad()
     def _verify_pool(self, tokens, kv, page_table, pos, n_valid):
         kb, pb = int(tokens.shape[1]), int(page_table.shape[1])
-        with dispatch.observation_suspended():
+        with dispatch.observation_suspended(), SS.head_sharding(self._shard):
             logits, kv = T.decode_verify_paged(self.cfg, self.params, tokens,
                                                kv, page_table, pos, n_valid,
                                                self.ctx)
@@ -206,10 +231,18 @@ class ServeEngine:
 
     # -- public ---------------------------------------------------------------
 
+    def _fresh_metrics(self) -> ServeMetrics:
+        """A per-run ServeMetrics with the group's shape in the registry's
+        ``serve/mesh_devices`` and ``serve/kv_shards`` gauges."""
+        m = ServeMetrics()
+        m.registry.gauge("serve/mesh_devices").set(float(self.tp))
+        m.registry.gauge("serve/kv_shards").set(float(self.pool.kv_shards))
+        return m
+
     def scheduler(self) -> Scheduler:
         """A fresh scheduler over this engine's (persistent) page pool."""
         return Scheduler(self.pool, self._prefill_pool, self._decode_pool,
-                         self._verify_pool, metrics=ServeMetrics(),
+                         self._verify_pool, metrics=self._fresh_metrics(),
                          prefix_sharing=self.prefix_sharing,
                          prefill_chunk=self.prefill_chunk,
                          prefill_slots=self.prefill_slots,

@@ -1,5 +1,5 @@
 """Paged KV-cache block pool (vLLM-style) — counterpart of
-``repro/serve/pool.py`` without tensor-parallel placement.
+``repro/serve/pool.py``.
 
 Every slot's K/V live in fixed-size pages; a sequence owns
 ``ceil(len/ps)`` pages, allocated and freed in O(1) from a free list, and
@@ -24,6 +24,17 @@ Page 0 is a reserved scratch page: writes that must land nowhere go
 there and it is never read back for a live row.  Pages are refcounted for
 prefix sharing, with copy-on-write before a slot writes into a shared
 page.
+
+**Tensor-parallel placement.**  With ``shard=`` (this rank's
+:class:`repro_torch.parallel.serve_sharding.HeadShard`) the pages, scales
+and int4 redistribution rows follow the shard plan
+(``serve_sharding.pool_specs``): a rank allocates only its contiguous
+``kvh / tp`` heads of every array, so its bytes
+(:meth:`cache_bytes_per_shard`) are ``1/tp`` of the global figure
+(:meth:`cache_bytes`).  A kvh the group does not divide falls back to
+replicated placement (``heads_sharded`` False, ``kv_shards`` 1).  The free
+list, refcounts, copy-on-write and page tables are host-side and never see
+the group.
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel import serve_sharding as SS
 from repro_torch.serve import kvq
 
 
@@ -57,7 +69,8 @@ class PagePool:
     def __init__(self, cfg: ModelConfig, n_slots: int, s_max: int, *,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  mode: str = "int8", dtype=torch.bfloat16,
-                 kv_calib: Optional[dict] = None, device="cuda"):
+                 kv_calib: Optional[dict] = None, device="cuda",
+                 shard: Optional[SS.HeadShard] = None):
         if mode not in kvq.KV_MODES:
             raise ValueError(f"unknown page mode {mode!r}")
         self.cfg, self.mode, self.dtype = cfg, mode, dtype
@@ -72,13 +85,28 @@ class PagePool:
         L, kvh, dh = n_attn_layers(cfg), cfg.n_kv_heads, cfg.head_dim
         self.quantizer = kvq.make_quantizer(mode, kvh=kvh, dh=dh, dtype=dtype,
                                             calib=kv_calib)
-        self.kv: Dict[str, torch.Tensor] = self.quantizer.page_arrays(
-            L, self.n_pages, page_size, kvh, dh, self.device)
+        pages = self.quantizer.page_arrays(L, self.n_pages, page_size, kvh,
+                                           dh, "meta")
         # keys whose second axis indexes pages: copy-on-write and the read
         # pricing touch only these; the rest of self.kv is per-pool state
         # (the int4 redistribution rows, [L, kvh, dh])
-        self._page_keys = tuple(self.kv)
-        self.kv.update(self.quantizer.pool_state(L, kvh, dh, self.device))
+        self._page_keys = tuple(pages)
+        state = self.quantizer.pool_state(L, kvh, dh, self.device)
+        # the shard plan, by global shapes: a kvh the group does not divide
+        # keeps every array whole on every rank (the replicated fallback)
+        self.kv_specs = (SS.pool_specs(shard.size, {
+            n: a.shape for n, a in {**pages, **state}.items()})
+            if shard is not None else None)
+        self.heads_sharded = SS.heads_sharded(self.kv_specs)
+        self.kv_shards = shard.size if self.heads_sharded else 1
+        # each rank allocates only its part: pages contiguous, never a
+        # slice of a whole pool (the paged kernel takes contiguous pages)
+        self.kv: Dict[str, torch.Tensor] = {
+            n: torch.zeros(self._local_shape(n, a.shape), dtype=a.dtype,
+                           device=self.device) for n, a in pages.items()}
+        self.kv.update({n: (SS.local_part(a, self.kv_specs[n], shard)
+                            if self.heads_sharded else a)
+                        for n, a in state.items()})
         self.page_table = np.zeros((n_slots, self.pages_per_slot), np.int32)
         self.refcount = np.zeros(self.n_pages, np.int32)
         self._free = list(range(self.n_pages - 1, 0, -1))  # pop() -> page 1 first
@@ -88,6 +116,11 @@ class PagePool:
         self.alloc_failures = 0
         self.share_count = 0
         self.cow_count = 0
+
+    def _local_shape(self, name, shape):
+        if not self.heads_sharded:
+            return tuple(shape)
+        return SS.shard_shape(shape, self.kv_specs[name], self.kv_shards)
 
     # -- alloc / free --------------------------------------------------------
 
@@ -264,20 +297,32 @@ class PagePool:
     def bucket_pages(self, n_needed: int) -> int:
         return bucket_pow2(n_needed, self.pages_per_slot)
 
+    def _global_bytes(self, name) -> int:
+        spec = self.kv_specs[name] if self.heads_sharded else None
+        return SS.global_bytes(self.kv[name], spec, self.kv_shards)
+
     def page_read_bytes(self) -> int:
-        """Bytes one page costs to read across all layers (K + V + scales;
-        int4 counts the packed nibble bytes).  Only page-indexed arrays
-        count: the int4 redistribution rows are per-pool constants."""
-        return sum(self.kv[n].numel() * self.kv[n].element_size()
-                   for n in self._page_keys) // self.n_pages
+        """Bytes one page costs to read across all layers and every shard
+        (K + V + scales; int4 counts the packed nibble bytes).  Only
+        page-indexed arrays count: the int4 redistribution rows are
+        per-pool constants."""
+        return sum(self._global_bytes(n) for n in self._page_keys) \
+            // self.n_pages
 
     # -- accounting ----------------------------------------------------------
 
     def cache_bytes(self) -> int:
-        """Bytes the pool holds on the device: every page of every layer,
-        live or free, plus the int4 redistribution rows (the reference's
-        ``kvcache.cache_bytes`` counts them too)."""
-        return sum(a.numel() * a.element_size() for a in self.kv.values())
+        """GLOBAL bytes of the pool, summed over every shard: every page of
+        every layer, live or free, plus the int4 redistribution rows (the
+        reference's ``kvcache.cache_bytes`` counts them too).  The same at
+        every tp."""
+        return sum(self._global_bytes(n) for n in self.kv)
+
+    def cache_bytes_per_shard(self) -> int:
+        """Bytes this rank holds (== :meth:`cache_bytes` unsharded): the
+        device memory that has to fit, ``cache_bytes() // tp`` where the
+        heads shard."""
+        return sum(SS.local_bytes(a) for a in self.kv.values())
 
     def stats(self, slot_lens: Optional[Dict[int, int]] = None) -> Dict[str, float]:
         usable = self.n_pages - 1
@@ -289,8 +334,8 @@ class PagePool:
             "free_count": self.free_count,
             "alloc_failures": self.alloc_failures,
             "cache_bytes": self.cache_bytes(),
-            "cache_bytes_per_shard": self.cache_bytes(),
-            "kv_shards": 1,
+            "cache_bytes_per_shard": self.cache_bytes_per_shard(),
+            "kv_shards": self.kv_shards,
             "kv_mode": self.mode,
             "bytes_per_token": self.page_read_bytes() / self.page_size,
             "pages_shared": int((self.refcount > 1).sum()),

@@ -72,7 +72,7 @@ def _mode(mode, k, v):
 def _run_paged(q, k, v, table, pos, kw):
     return PA._launch(q, k, v, table, pos, kw.get("k_scale"), kw.get("v_scale"),
                       kw.get("k_redist"), kw.get("v_redist"), kw.get("window"),
-                      kw.get("softcap"))
+                      kw.get("softcap"), kw.get("plan_kv_heads"))
 
 
 def _f32_twin(q, k, v, table, pos, kw):
@@ -144,6 +144,31 @@ def test_emulated_paged_attention_wide_query_block(emulated):
     out = _run_paged(q, k, v, table, pos, {})
     torch.testing.assert_close(out, PA.paged_attention_plain(q, k, v, table, pos),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_emulated_paged_attention_head_shards_at_the_global_plan(emulated, tp):
+    """Tensor-parallel serving runs the kernel on each rank's kvh / tp
+    heads (contiguous pages, its slice of the redistribution rows) with
+    the split plan of all kvh heads: the ranks' outputs, concatenated over
+    heads, are bit-equal to one launch over every head, on int4 pages with
+    several KV splits."""
+    kvh, g = 4, 2
+    q, k, v, table, pos = _pages(40 + tp, b=3, sq=1, h=kvh * g, kvh=kvh,
+                                 n_table=13)
+    k, v, kw = _mode("int4", k, v)
+    full = _run_paged(q, k, v, table, pos, kw)
+    kl, hl = kvh // tp, kvh // tp * g
+    parts = []
+    for r in range(tp):
+        heads = slice(r * kl, (r + 1) * kl)
+        rkw = {n: (t[heads] if n.endswith("redist") else t[:, :, heads])
+               .contiguous() for n, t in kw.items()}
+        parts.append(_run_paged(
+            q[:, :, r * hl:(r + 1) * hl], k[:, :, heads].contiguous(),
+            v[:, :, heads].contiguous(), table, pos,
+            {**rkw, "plan_kv_heads": kvh}))
+    assert torch.equal(torch.cat(parts, dim=2), full)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

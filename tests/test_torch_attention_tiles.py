@@ -4,7 +4,9 @@ the CPU where the kernels cannot run.
 
 - ``paged_attention.plan_splits``, the wrapper's choice of row tiles and KV
   splits: every (slot, KV head, query row, page) falls in exactly one
-  block, no split is empty, and decode fills the card.
+  block, no split is empty, and decode fills the card; under tensor-
+  parallel serving the plan is made for the global KV-head count, so each
+  rank's heads sum in the order they do on one device.
 - A torch emulation of the kernel's schedule (row tiles, KV splits, key
   tiles, online softmax, empty partials, the merge) against
   ``paged_attention_plain`` and the reference's ``paged_attention_ref``,
@@ -88,9 +90,10 @@ def test_plan_fills_the_card_at_decode():
 # ---------------------------------------------------------------------------
 
 def split_kv_emulation(q, k, v, table, pos, *, window=None, softcap=None,
-                       n_sm=132):
+                       n_sm=132, plan_kvh=None):
     """The paged kernel's schedule in f32 torch on fp pages: row tiles and
-    KV splits from ``plan_splits``; a block reads pages up to its row
+    KV splits from ``plan_splits`` (made for ``plan_kvh`` KV heads, the
+    pages' own count by default); a block reads pages up to its row
     tile's last position and walks its split in key tiles of KEY_TILE
     positions with an online softmax (m from NEG_INF, masked scores
     NEG_INF); an empty split is the partial (m = -inf, l = 0); the merge
@@ -99,7 +102,8 @@ def split_kv_emulation(q, k, v, table, pos, *, window=None, softcap=None,
     ps, kvh = k.shape[1], k.shape[2]
     g, n_table = h // kvh, table.shape[1]
     rows = sq * g
-    n_rt, pps, n_split = PA.plan_splits(b, kvh, rows, n_table, ps, dh, n_sm)
+    n_rt, pps, n_split = PA.plan_splits(b, plan_kvh or kvh, rows, n_table, ps,
+                                        dh, n_sm)
     win = PA.NO_WINDOW if window is None else window
     out = torch.empty_like(q)
     for bi in range(b):
@@ -143,12 +147,12 @@ def split_kv_emulation(q, k, v, table, pos, *, window=None, softcap=None,
     return out
 
 
-def _split_inputs(seed, sq, g, *, ps=8, dh=16, n_table=12):
-    """3 slots over 2 KV heads: slot 0's table full, slot 1's short (its
-    tail on scratch page 0), slot 2 idle (every entry scratch page 0, pos
-    0)."""
+def _split_inputs(seed, sq, g, *, ps=8, dh=16, n_table=12, kvh=2):
+    """3 slots over ``kvh`` KV heads: slot 0's table full, slot 1's short
+    (its tail on scratch page 0), slot 2 idle (every entry scratch page 0,
+    pos 0)."""
     rng = np.random.default_rng(seed)
-    b, kvh = 3, 2
+    b = 3
     n_pages = 2 * n_table
     q = rng.standard_normal((b, sq, kvh * g, dh)).astype(np.float32)
     k = rng.standard_normal((n_pages, ps, kvh, dh)).astype(np.float32)
@@ -199,6 +203,34 @@ def test_split_kv_emulation_window_and_fully_masked_rows(sq):
     want = gathered.repeat_interleave(g, 0)
     torch.testing.assert_close(emu[1], want[None].expand(sq, -1, -1), rtol=0,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("sq,g", [(1, 1), (4, 7)])
+def test_head_shards_planned_for_the_global_heads_sum_as_one_device(tp, sq, g):
+    """A rank of a tp-way serve holds kvh / tp KV heads.  Planned for its
+    own heads it would cut each head's table into more splits than one
+    device does (gpt2 decode: 3 splits at 12 heads, 8 at 6), and merge its
+    partials in another order.  Planned for the global count (what the
+    attention passes as ``plan_kv_heads``), every (slot, head) block does
+    the work it does on one device: the split emulation on each rank's
+    heads, concatenated over the ranks, is bit-equal to the emulation of
+    all heads."""
+    assert PA.plan_splits(4, 12 // tp, 1, 8, 16, 64) != \
+        PA.plan_splits(4, 12, 1, 8, 16, 64)
+    kvh = 4
+    q, k, v, table, pos = (torch.from_numpy(a) for a in
+                           _split_inputs(tp + sq, sq, g, kvh=kvh))
+    assert PA.plan_splits(3, kvh // tp, sq * g, 12, 8, 16) != \
+        PA.plan_splits(3, kvh, sq * g, 12, 8, 16)
+    full = split_kv_emulation(q, k, v, table, pos)
+    kl, hl = kvh // tp, kvh // tp * g
+    parts = [split_kv_emulation(
+        q[:, :, r * hl:(r + 1) * hl],
+        k[:, :, r * kl:(r + 1) * kl].contiguous(),
+        v[:, :, r * kl:(r + 1) * kl].contiguous(), table, pos, plan_kvh=kvh)
+        for r in range(tp)]
+    assert torch.equal(torch.cat(parts, dim=2), full)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,17 @@
 """The port's serving launcher (``python -m repro_torch.launch.serve``)
 against the reference launcher (``repro.launch.serve``).
 
-Its flags are the reference's plus ``--device``.  The plumbing tests stub
-the engine, the quantizer and ``init_params`` at the launcher's module
-seam, as ``tests/test_launch_serve.py`` does for the reference, so no
-model compute runs; they cover the refusals (``--tp`` > 1, which the port
-does not serve, among them) and the observability flags' plumbing.  One
-real ``--device cpu`` run per backend serves the reduced gpt2, writes its
+Its flags are the reference's plus ``--device`` and ``--dist-backend``
+(the transport of ``--tp``'s ranks).  The plumbing tests stub the engine,
+the quantizer and ``init_params`` at the launcher's module seam, as
+``tests/test_launch_serve.py`` does for the reference, so no model compute
+runs; they cover the refusals (``--tp 0``, nccl off CUDA or on too few
+cards among them) and the observability flags' plumbing.  One real
+``--device cpu`` run per backend serves the reduced gpt2, writes its
 ``--json-out`` report and a ``--save-artifact`` bundle that the reference
 loads; one more runs ``--trace-out`` and ``--obs`` and checks the trace
-file and the quality snapshot it writes.
+file and the quality snapshot it writes.  ``--tp 2`` on gloo ranks serves
+the ``--tp 1`` stream, and writes rank 0's trace.
 """
 import json
 import re
@@ -36,7 +38,7 @@ def test_flag_set_is_the_reference_launchers_plus_device(capsys):
     ref = _flags(JL.main, capsys)
     assert {"--quant", "--backend", "--kv-mode", "--spec-mode", "--tp",
             "--json-out", "--pack-target"} <= ref
-    assert _flags(L.main, capsys) == ref | {"--device"}
+    assert _flags(L.main, capsys) == ref | {"--device", "--dist-backend"}
 
 
 class _StubMetrics:
@@ -172,9 +174,9 @@ def test_pack_target_flag_reaches_quantizer(stubbed):
 @pytest.mark.parametrize("argv,match", [
     (["--quant", "muxq", "--backend", "fused", "--pack-target", "tree"], "pack-target"),
     (["--quant", "llm_int8", "--backend", "fused"], "llm_int8"),
-    (["--tp", "2"], "item 9"),
+    (["--tp", "2", "--dist-backend", "nccl"], "gloo"),   # nccl off CUDA
     (["--tp", "0"], "--tp"),
-    (["--tp", "2", "--trace-out", "trace.json", "--obs"], "item 9"),
+    (["--tp", "2", "--dist-backend", "mpi"], None),
     (["--spec-mode", "medusa"], None),
 ])
 def test_refusals_serve_nothing(stubbed, argv, match):
@@ -306,3 +308,84 @@ def test_real_cpu_run_for_the_moe_archs(tmp_path, arch):
                    "--device", "cpu", "--max-new", "3", "--json-out",
                    str(report)]) == 0
     assert json.loads(report.read_text())["report"]["tokens_out"] == 6
+
+
+def test_nccl_with_too_few_cards_is_refused(stubbed, monkeypatch):
+    """nccl serves rank r on cuda:r: more ranks than visible cards exit
+    with a message naming the way out, before any model is built."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit) as e:
+        L.main(["--tp", "2"])
+    assert "1 device(s) are visible" in str(e.value.code)
+    assert "--dist-backend gloo" in str(e.value.code)
+    assert not _StubEngine.calls and not stubbed["init_devices"]
+
+
+def _streams_of(argv):
+    """Run the launcher; returns every rank's streams: at ``--tp 1`` from
+    the engine it served with, at ``--tp N`` from what the ranks returned
+    (their function travels by name, so only the spawn is wrapped)."""
+    seen = {}
+
+    class Engine(L.ServeEngine):
+        def generate(self, reqs, arrivals=None):
+            out = super().generate(reqs, arrivals)
+            seen["outs"] = [{"streams": [r.out_tokens for r in reqs]}]
+            return out
+
+    def ranks(*a, **kw):
+        seen["outs"] = run_ranks(*a, **kw)
+        return seen["outs"]
+
+    run_ranks = L.run_ranks
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(L, "ServeEngine", Engine)
+        mp.setattr(L, "run_ranks", ranks)
+        assert L.main(argv) == 0
+    return [o["streams"] for o in seen["outs"]]
+
+
+def test_tp2_on_cpu_serves_the_tp1_stream(tmp_path, capsys):
+    """``--tp 2 --device cpu`` (gloo, the default there) spawns two ranks
+    that serve the reduced gpt2 with its 4 KV heads split 2 + 2: both
+    ranks' streams equal the ``--tp 1`` stream, and rank 0's report
+    counts 2 KV shards holding half the pool's bytes each."""
+    argv = ["--quant", "muxq", "--backend", "fused", "--device", "cpu",
+            "--max-new", "5"]
+    one = _streams_of(argv + ["--json-out", str(tmp_path / "1.json")])
+    two = _streams_of(argv + ["--tp", "2", "--json-out",
+                              str(tmp_path / "2.json")])
+    assert len(one) == 1 and len(two) == 2
+    assert two[0] == two[1] == one[0]
+    assert all(len(s) == 5 for s in one[0])
+    out = capsys.readouterr().out
+    assert out.count("kv pages [int8]") == 2
+    rep1 = json.loads((tmp_path / "1.json").read_text())["report"]
+    rep2 = json.loads((tmp_path / "2.json").read_text())["report"]
+    assert (rep1["kv_shards"], rep2["kv_shards"]) == (1, 2)
+    assert rep2["cache_bytes"] == rep1["cache_bytes"]
+    assert rep2["cache_bytes_per_shard"] * 2 == rep2["cache_bytes"]
+
+
+def test_tp2_trace_and_obs_write_rank0s_trace(tmp_path, capsys):
+    """``--tp 2 --trace-out --obs``: rank 0 alone writes the Chrome trace,
+    stamped with ``mesh_devices=2`` in its metadata and process labels,
+    and the --json-out report with its quality snapshot."""
+    from repro_torch.obs.trace import chrome_errors
+
+    trace, report = tmp_path / "trace.json", tmp_path / "serve.json"
+    assert L.main(["--quant", "muxq", "--backend", "fused", "--device", "cpu",
+                   "--max-new", "4", "--tp", "2", "--trace-out", str(trace),
+                   "--obs", "--json-out", str(report)]) == 0
+    out = capsys.readouterr().out
+    assert out.count("trace:") == 1 and out.count("obs:") == 1
+    assert chrome_errors(trace) == []
+    doc = json.loads(trace.read_text())
+    assert doc["otherData"]["mesh_devices"] == 2
+    assert doc["otherData"]["kv_shards"] == 2
+    labels = [e for e in doc["traceEvents"] if e.get("name") == "process_labels"]
+    assert labels and all("mesh_devices=2" in e["args"]["labels"]
+                          for e in labels)
+    rep = json.loads(report.read_text())
+    assert rep["registry"]["serve/mesh_devices"] == 2.0
+    assert set(rep["quality"]["sites"]) == {"kv/k", "kv/v"}
