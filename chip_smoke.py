@@ -133,12 +133,36 @@ its seconds):
    heads, beside SDPA; gemma2 decode on 4 KV heads), planned for the
    model's heads; one gloo ``all_reduce`` of a CUDA tensor timed in each
    rank at 16 KB, 1 MB and 16 MB.
-17. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
+17. Training and the paper's pipeline on trained weights, gpt2-small at
+   full width in f32 (``train_phase``): (a) the port's ``Trainer``, batch
+   8 x 256, 200 steps, AdamW (lr 3e-3, warmup 20), one checkpoint at step
+   200 under ``build/`` (restored bit-equal, then removed): every logged
+   loss finite, the last below the first; the loss curve, the median step
+   time over steps 50-200, tokens/s and the peak device memory printed;
+   (b) 20 steps straight against 10 steps, a fresh ``Trainer`` and a
+   resume to 20: final losses within RESUME_RTOL; (c) 6 channels x20
+   injected (``inject_outliers``): fp perplexity on 4 held-out batches
+   moves under SURGERY_RTOL; (d) calibration through ``forward`` on 2
+   more held-out batches finds outlier channels; (e) the paper's Table-1
+   point through ``make_eval_step`` on the fake backend (fp; naive, MUXQ,
+   LLM.int8(), SmoothQuant per-tensor at W8A8 and W8A6): naive above MUXQ
+   at A6; (f) a fused MUXQ artifact (``MUXQ_FUSED_SERVE``) evaluated
+   through ``rowwise_quantize`` + ``muxq_gemm`` at M 2048: CE within
+   EVAL_CE_RTOL of the plain versions', every site's int8 codes and
+   scales equal, exactly one quantize and one GEMM a site and batch;
+   ``muxq_gemm`` timed cold at that M beside ``torch._int_mm``; (g)
+   ``make_prefill_step`` + 16 ``make_serve_step`` steps on 4 prompts: on
+   an f32 cache (fp) every step's token is the teacher-forced argmax and
+   the logits are within LOGIT_RTOL of the paged ``decode_step_paged`` on
+   f32 pages; with the fused artifact on an int8 cache one quantize and
+   one GEMM a site a step.
+18. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
 ``launches`` in the JSON line counts the launches of the full-width
-serving runs of phases 5, 8, 10, 11, 12, 14 and 15 and of every rank of
-phase 16 (each run starts from zero counts); the traced serve of phase 6
+serving runs of phases 5, 8, 10, 11, 12, 14 and 15, of every rank of
+phase 16, and of phase 17's fused evaluation and int8 dense-cache serve
+(each run starts from zero counts); the traced serve of phase 6
 and the launcher's reduced-width run
 of phase 9 keep their own counts in ``chip_smoke.json``.  ``flash_attention`` is on no
 serving path and has 0.  It imports nothing of JAX or of the
@@ -217,6 +241,16 @@ MOE_ARCHS = ("llama4-scout-17b-a16e", "dbrx-132b")
 MOE_L4_LAYERS = 2           # llama4-scout-17b-a16e at 2 of its 48 layers
 MOE_DBRX_LAYERS = 1         # dbrx-132b at 1 of its 40 layers
 TP_TIMEOUT_S = 600.0        # phase 16: a world of ranks, and each collective
+# phase 17: gpt2-small trained at full width
+TRAIN_STEPS = 200
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+RESUME_RTOL = 1e-4      # (b) resumed vs straight final loss: the card sums
+                        # the embedding's gradient with atomics, in no fixed
+                        # order
+SURGERY_RTOL = 2e-3     # (c) fp perplexity moved by the outlier injection
+                        # (tests/test_paper_repro.py's claim)
+EVAL_CE_RTOL = 1e-5     # (f) fused evaluation, kernels vs plain versions
+N_DECODE = 16           # (g) dense-cache decode steps
 
 
 def smi_line() -> str:
@@ -409,6 +443,378 @@ def tp_rank(rank, tp, src, device, jobs):
         cost[nbytes] = (time.perf_counter() - t0) * 1e3 / 10
     outs.append({"allreduce_ms": cost})
     return outs
+
+
+def train_phase(torch, dev, cfg, card, reset_counts, read_counts, flush,
+                scratch: Path):
+    """Phase 17: training and the paper's pipeline on trained weights, all
+    on ``dev`` in f32.  Returns (the phase's report, {label: launch counts}
+    of its main-path runs: the fused evaluation and the int8 dense-cache
+    serve).  ``scratch`` holds the checkpoints (removed at the end)."""
+    import numpy as np
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.calibrate import calibrate
+    from repro_torch.core.context import FpCtx, as_ctx
+    from repro_torch.core.muxq import QuantConfig
+    from repro_torch.core.policy import SitePolicy
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.data.synthetic import corpus
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels import muxq_gemm as G
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.steps import (MUXQ_FUSED_SERVE, make_eval_step,
+                                          make_prefill_step, make_serve_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import init_cache
+    from repro_torch.models.surgery import (inject_outliers,
+                                            pick_outlier_channels)
+    from repro_torch.optim.adamw import AdamWConfig, tree_leaves
+    from repro_torch.quantize import quantize_model
+    from repro_torch.serve.pool import PagePool
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    rep, runs = {}, {}
+    shutil.rmtree(scratch, ignore_errors=True)
+    pcfg = PipelineConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+    n_sites = 4 * cfg.n_layers
+
+    # (a) train at full width ------------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30    # earlier phases'
+    ck_dir = scratch / "train"
+    tr = Trainer(cfg, TrainConfig(steps=TRAIN_STEPS, ckpt_dir=str(ck_dir),
+                                  ckpt_every=TRAIN_STEPS, keep=1,
+                                  log_every=10),
+                 pcfg, AdamWConfig(lr=3e-3, warmup_steps=20,
+                                   total_steps=TRAIN_STEPS), device=dev)
+    step_s, inner = [], tr.step_fn
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+    tr.step_fn = timed_step
+    curve = []
+    out = tr.run(on_step=lambda s, m: curve.append(
+        {"step": s, **{k: m[k] for k in ("loss", "lr", "grad_norm")}}))
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held_gib
+    losses = [c["loss"] for c in curve]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"training: losses {losses}")
+    steady = sorted(step_s[50:])
+    med = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    params = tr.params
+    # where a step's time goes: 3 more steps (results dropped) under the
+    # profiler; the busy share is their device time against the median
+    # unprofiled step
+    from torch.profiler import ProfilerActivity, profile
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in tr.pipe.batch_at(0).items()}
+    p_, o_ = params, tr.opt_state
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            p_, o_, _ = inner(p_, o_, batch)
+        torch.cuda.synchronize()
+    del p_, o_
+    # kernel rows only: an aten op's row also carries its kernels' time
+    rows = [(e.key, e.self_device_time_total / 3e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(t for _, t in rows)
+    gemm_ms = sum(t for k, t in rows if "gemm" in k.lower())
+    top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:8]
+    restored, _, meta = ckpt.restore(ck_dir, TRAIN_STEPS, params)
+    if ckpt.latest_step(ck_dir) != TRAIN_STEPS or meta["data"] != {
+            "step": TRAIN_STEPS} or not all(
+                torch.equal(a, b) for a, b in zip(
+                    tree_leaves(params), tree_leaves(restored))):
+        raise AssertionError("training: the step-200 checkpoint does not "
+                             "restore the trained params")
+    ck_mb = sum(f.stat().st_size for f in ck_dir.rglob("*.npz")) / 2**20
+    del tr, restored, inner
+    rep["train"] = {"curve": curve, "step_ms_median_50_200": med * 1e3,
+                    "tokens_per_s": tokens / med, "wall_s": out["wall_s"],
+                    "wall_tokens_per_s": TRAIN_STEPS * tokens / out["wall_s"],
+                    "peak_gib": peak, "held_before_gib": held_gib,
+                    "checkpoint_mib": ck_mb,
+                    "device_ms_per_step": dev_ms, "gemm_ms_per_step": gemm_ms,
+                    "busy_share": dev_ms / (med * 1e3),
+                    "top": [{"name": k[:80], "ms": t} for k, t in top]}
+    shown = " ".join(f"{c['step']}:{c['loss']:.4f}" for c in curve)
+    print(f"train gpt2-small (full width, f32, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, {TRAIN_STEPS} steps): loss {shown}; median "
+          f"step {med * 1e3:.2f} ms over steps 50-{TRAIN_STEPS} "
+          f"({tokens / med:.0f} tokens/s; whole run {out['wall_s']:.2f} s, "
+          f"checkpoint and logging included); peak device memory of the "
+          f"training {peak:.2f} GiB (over the {held_gib:.2f} GiB that "
+          f"earlier phases hold); checkpoint {ck_mb:.0f} MiB  [{card}]",
+          flush=True)
+    print(f"profile of a train step: device {dev_ms:.2f} ms a step, "
+          f"{dev_ms / (med * 1e3):.1%} of the median step; GEMM kernels "
+          f"{gemm_ms:.2f} ms; top kernels (ms a step): " + "; ".join(
+              f"{k[:48]} {t:.2f}" for k, t in top[:6]) + f"  [{card}]",
+          flush=True)
+
+    # (b) resume on the card --------------------------------------------------
+    racfg = AdamWConfig(lr=3e-3, warmup_steps=4, total_steps=20)
+    straight = Trainer(cfg, TrainConfig(steps=20, log_every=20), pcfg, racfg,
+                       device=dev).run()["final_loss"]
+    rd = scratch / "resume"
+    Trainer(cfg, TrainConfig(steps=10, ckpt_dir=str(rd), ckpt_every=10,
+                             log_every=10), pcfg, racfg, device=dev).run()
+    again = Trainer(cfg, TrainConfig(steps=20, ckpt_dir=str(rd),
+                                     ckpt_every=20, log_every=20),
+                    pcfg, racfg, device=dev)
+    if again.step != 10:
+        raise AssertionError(f"resume: started at step {again.step}, not 10")
+    resumed = again.run()["final_loss"]
+    del again
+    gap = abs(resumed - straight) / abs(straight)
+    if not gap <= RESUME_RTOL:
+        raise AssertionError(f"resume: final loss {resumed} vs straight "
+                             f"{straight} ({gap:.3g} relative)")
+    rep["resume"] = {"straight": straight, "resumed": resumed, "gap": gap}
+    print(f"resume on the card: 20 steps straight, final loss {straight!r}; "
+          f"10 steps, a fresh Trainer and a resume to 20: {resumed!r} "
+          f"({gap:.3g} relative, limit {RESUME_RTOL})  [{card}]", flush=True)
+
+    # (c) surgery -------------------------------------------------------------
+    held = TokenPipeline(PipelineConfig(seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH, seed=777),
+                         text=corpus(4000, seed=9))
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in held.batch_at(i).items()} for i in range(6)]
+    evals, calib = batches[:4], batches[4:]
+
+    def mean_ce(step, p):
+        return float(np.mean([float(step(p, b)) for b in evals]))
+
+    fp_eval = make_eval_step(cfg, device=dev)
+    pout = inject_outliers(cfg, params, pick_outlier_channels(cfg, 6, seed=1),
+                           20.0)
+    ppl_clean = math.exp(mean_ce(fp_eval, params))
+    ppl_out = math.exp(mean_ce(fp_eval, pout))
+    moved = abs(ppl_out - ppl_clean) / ppl_clean
+    if not moved < SURGERY_RTOL:
+        raise AssertionError(f"surgery: fp perplexity {ppl_clean} -> "
+                             f"{ppl_out} ({moved:.3g} relative)")
+    del params
+
+    # (d) calibration -----------------------------------------------------------
+    stats, masks, _ = calibrate(
+        lambda p, b, ctx: T.forward(cfg, p, b["tokens"], ctx), pout, calib)
+    n_out = {s: int(np.sum(m)) for s, m in sorted(masks.items())}
+    if not sum(n_out.values()):
+        raise AssertionError("calibration: no outlier channel found")
+    rep["surgery"] = {"ppl_clean": ppl_clean, "ppl_injected": ppl_out,
+                      "moved": moved, "outlier_channels": n_out}
+    kinds = {}
+    for s, n in n_out.items():
+        kinds.setdefault(s.split("/")[-1], []).append(n)
+    print(f"surgery: 6 channels x20 into the trained weights, fp perplexity "
+          f"{ppl_clean:.6f} -> {ppl_out:.6f} ({moved:.3g} relative); "
+          f"calibration on 2 held-out batches: outlier channels by layer "
+          f"{kinds}  [{card}]", flush=True)
+
+    # (e) the paper's Table-1 point on trained weights (fake backend) ----------
+    table = {"fp": math.exp(mean_ce(fp_eval, pout))}
+    for bits in (8, 6):
+        for method in ("naive", "muxq", "llm_int8", "smoothquant"):
+            qc = QuantConfig(method=method, act_bits=bits, weight_bits=8,
+                             act_granularity="per_tensor",
+                             outlier_mode="static", exp_factor=2)
+            art = quantize_model(cfg, pout, stats, SitePolicy.uniform(qc),
+                                 prequantize=False, device=dev)
+            table[f"{method} W8A{bits}"] = math.exp(mean_ce(
+                make_eval_step(cfg, quant=art, device=dev), pout))
+    if not table["naive W8A6"] > table["muxq W8A6"]:
+        raise AssertionError(f"table 1: naive does not rank above MUXQ at "
+                             f"A6 per-tensor: {table}")
+    rep["table1"] = table
+    print("table 1 on trained weights (per-tensor, perplexity on 4 held-out "
+          "batches of 8 x 256): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in table.items()) + f"  [{card}]",
+          flush=True)
+
+    # (f) the fused evaluation through the kernels ------------------------------
+    fart = quantize_model(cfg, pout, stats,
+                          SitePolicy.uniform(MUXQ_FUSED_SERVE), device=dev)
+    fused_eval = make_eval_step(cfg, quant=fart, device=dev)
+
+    def logged(kernels):
+        """CEs of the fused evaluation and the codes every site quantized
+        (the kernels' path, or with the fused impl set to the plain
+        versions)."""
+        codes = []
+        k_rq, p_rq = ops.rowwise_quantize, kref.rowwise_quantize_ref
+
+        def rec(fn):
+            def wrapped(*a, **k):
+                out = fn(*a, **k)
+                codes.append(out)
+                return out
+            return wrapped
+        ops.rowwise_quantize = rec(k_rq)
+        kref.rowwise_quantize_ref = rec(p_rq)
+        prev = dispatch.set_fused_impl("auto" if kernels else "ref")
+        try:
+            reset_counts()
+            ces = [float(fused_eval(pout, b)) for b in evals]
+            torch.cuda.synchronize()
+            counts = read_counts()
+        finally:
+            ops.rowwise_quantize, kref.rowwise_quantize_ref = k_rq, p_rq
+            dispatch.set_fused_impl(prev)
+        return ces, codes, counts
+
+    ces_k, codes_k, launches = logged(True)
+    ces_p, codes_p, _ = logged(False)
+    want = {"rowwise_quantize": n_sites * len(evals),
+            "muxq_gemm": n_sites * len(evals)}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"fused evaluation launched {launches}, "
+                             f"expected {want}")
+    if len(codes_k) != len(codes_p) or not all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(codes_k, codes_p)):
+        raise AssertionError("fused evaluation: the kernels' int8 codes or "
+                             "scales differ from the plain versions'")
+    ce_k, ce_p = float(np.mean(ces_k)), float(np.mean(ces_p))
+    if not abs(ce_k - ce_p) <= EVAL_CE_RTOL * abs(ce_p):
+        raise AssertionError(f"fused evaluation: CE {ce_k} through the "
+                             f"kernels vs {ce_p} plain")
+    del codes_k, codes_p
+    runs["gpt2-small trained: fused MUXQ evaluation"] = launches
+    rep["fused_eval"] = {"ce_kernels": ces_k, "ce_plain": ces_p,
+                         "ppl": math.exp(ce_k), "launches": launches}
+    print(f"fused MUXQ evaluation (W8A8 per-token/per-channel, "
+          f"rowwise_quantize + muxq_gemm at M {TRAIN_BATCH * TRAIN_SEQ}): "
+          f"perplexity {math.exp(ce_k):.6f} (kernels) vs {math.exp(ce_p):.6f} "
+          f"(plain), codes equal at all {len(ces_k) * n_sites} site calls; "
+          f"fake MUXQ W8A8 per-tensor {table['muxq W8A8']:.6f}; launches "
+          f"{launches}  [{card}]", flush=True)
+
+    # muxq_gemm at the evaluation's M, one site, cold
+    ctx = as_ctx(fart, dev)
+    mw = dispatch.as_muxq_weights(ctx.kernel_buffers["layer0/mlp_up"])
+    m = TRAIN_BATCH * TRAIN_SEQ
+    k_pad, n = mw.w_int.shape
+    gen = torch.Generator().manual_seed(17)
+    xq = torch.randint(-127, 128, (m, k_pad), generator=gen,
+                       dtype=torch.int8).to(dev)
+    sx = torch.rand(m, 1, generator=gen).to(dev)
+    row = {"kernel": "muxq_gemm", "model": "gpt2-small trained", "site":
+           "mlp_up", "m": m, "k_pad": k_pad, "n": n}
+    row["ms"], row["spread_ms"] = time_ms(torch, lambda: G.muxq_gemm(
+        xq, mw.w_int, mw.block_scale, sx, mw.sw, bk=mw.bk), flush)
+    row["plain_ms"] = time_ms(torch, lambda: G.muxq_gemm_plain(
+        xq, mw.w_int, mw.block_scale, sx, mw.sw, mw.bk), flush)[0]
+    row["int_mm_ms"] = maybe_time(torch, lambda: torch._int_mm(xq, mw.w_int),
+                                  flush)
+    row["bound_ms"], row["bound_by"] = bound(
+        m * k_pad + k_pad * n + 4 * (k_pad // mw.bk + m + n) + 4 * m * n,
+        2 * m * n * k_pad, INT8_OPS_S)
+    rep["gemm_m2048"] = row
+    print(f"time muxq_gemm [gpt2 mlp_up M={m} K_pad={k_pad} N={n}, cold]: "
+          f"kernel {row['ms']:.4f} ms (spread {row['spread_ms'][0]:.4f}-"
+          f"{row['spread_ms'][1]:.4f}), plain {row['plain_ms']:.4f} ms, "
+          f"torch._int_mm {row['int_mm_ms']} ms, bound {row['bound_ms']:.5f} "
+          f"ms ({row['bound_by']})  [{card}]", flush=True)
+
+    # (g) the dense-cache serve path --------------------------------------------
+    P, b = 32, 4
+    prompts = evals[0]["tokens"][:b, :P]
+    s_max = P + N_DECODE
+    prefill = make_prefill_step(cfg, s_max, kv_dtype=torch.float32,
+                                device=dev)
+    serve = make_serve_step(cfg, device=dev)
+    tok, cache = prefill(pout, {"tokens": prompts})
+    stream = [tok]
+    for _ in range(N_DECODE):
+        tok, cache = serve(pout, {"tokens": tok[:, None], "cache": cache})
+        stream.append(tok)
+    # teacher-forced over that stream: the dense cache against f32 pages
+    pool = PagePool(cfg, b, s_max, page_size=16, mode="fp",
+                    dtype=torch.float32, device=dev)
+    pp = pool.pages_per_slot
+    table_ = torch.arange(1, 1 + b * pp, dtype=torch.int32,
+                          device=dev).reshape(b, pp)
+    zeros = torch.zeros(b, dtype=torch.int32, device=dev)
+    fp = FpCtx()
+    worst = 0.0
+    with torch.no_grad():
+        dense = T.forward(cfg, pout, prompts, fp, cache=init_cache(
+            cfg, b, s_max, dtype=torch.float32, device=dev))
+        paged, _ = T.prefill_chunk_paged(cfg, pout, prompts, pool.kv, table_,
+                                         zeros, zeros, zeros + P, fp)
+        pairs = [(dense["logits"][:, -1], paged[:, -1])]
+        dcache = dense["cache"]
+        for j in range(N_DECODE):
+            t_ = stream[j][:, None]
+            ld, dcache = T.decode_step(cfg, pout, t_, dcache, fp)
+            lp, _ = T.decode_step_paged(cfg, pout, t_, pool.kv, table_,
+                                        zeros + P + j, fp)
+            pairs.append((ld[:, 0], lp[:, 0]))
+        for j, (ld, lp) in enumerate(pairs):
+            ld, lp = ld[:, :cfg.vocab_size], lp[:, :cfg.vocab_size]
+            if not torch.equal(torch.argmax(ld, -1).to(torch.int32),
+                               stream[j]):
+                raise AssertionError(f"dense serve step {j}: its token is "
+                                     "not the teacher-forced argmax")
+            err = float((ld - lp).abs().max()) / float(ld.abs().max())
+            worst = max(worst, err)
+    if not worst <= LOGIT_RTOL:
+        raise AssertionError(f"dense-cache serve: logits {worst:.3g} of "
+                             f"their scale off the paged decode")
+    # the fused artifact on an int8 cache: one quantize and one GEMM a site
+    # a step
+    prefill8 = make_prefill_step(cfg, s_max, quant=fart, kv_dtype=torch.int8,
+                                 device=dev)
+    serve8 = make_serve_step(cfg, quant=fart, device=dev)
+    per_step, total = [], {}
+    reset_counts()
+    tok8, cache8 = prefill8(pout, {"tokens": prompts})
+    torch.cuda.synchronize()
+    per_step.append(read_counts())
+    stream8 = [tok8]
+    for _ in range(N_DECODE):
+        reset_counts()
+        tok8, cache8 = serve8(pout, {"tokens": tok8[:, None],
+                                     "cache": cache8})
+        torch.cuda.synchronize()
+        per_step.append(read_counts())
+        stream8.append(tok8)
+    for c in per_step:
+        if {k: v for k, v in c.items() if v} != {"rowwise_quantize": n_sites,
+                                                "muxq_gemm": n_sites}:
+            raise AssertionError(f"int8 dense-cache serve: a step launched "
+                                 f"{c}, expected {n_sites} of each")
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    if cache8["k"].dtype != torch.int8 or int(cache8["pos"]) != s_max:
+        raise AssertionError("int8 dense-cache serve: the cache is not int8 "
+                             f"at position {s_max}")
+    s8 = torch.stack(stream8, 1)
+    if not bool(((s8 >= 0) & (s8 < cfg.vocab_size)).all()):
+        raise AssertionError("int8 dense-cache serve: tokens out of range")
+    runs["gpt2-small trained: dense-cache int8 serve, fused MUXQ"] = total
+    same = float((s8 == torch.stack(stream, 1)).float().mean())
+    rep["dense_serve"] = {"max_logit_rel_gap": worst, "int8_launches": total,
+                          "int8_vs_fp_token_agreement": same}
+    print(f"dense-cache serve: prefill of 4 x {P} + {N_DECODE} decode steps; "
+          f"f32 cache vs f32 pages (FpCtx) teacher-forced logits within "
+          f"{worst:.3g} of their scale; fused MUXQ on an int8 cache: "
+          f"{n_sites} quantizes and {n_sites} GEMMs a step, "
+          f"{same:.3f} of its tokens equal the fp stream's  [{card}]",
+          flush=True)
+    shutil.rmtree(scratch, ignore_errors=True)
+    return rep, runs
 
 
 def main() -> int:
@@ -2470,7 +2876,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("tensor-parallel serving")
 
-    # -- 17. result lines ---------------------------------------------------------
+    # -- 17. training and the paper's pipeline on trained weights ---------------
+    report["training"], train_runs = train_phase(
+        torch, dev, cfg, card, reset_counts, read_counts, flush,
+        ROOT / "build" / "chip_smoke_train")
+    main_runs.update(train_runs)
+    torch.cuda.empty_cache()
+    phases.done("training")
+
+    # -- 18. result lines ---------------------------------------------------------
     pa_src = ("src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:161")
     sources = {"rowwise_quantize": ("src/repro_torch/csrc/rowwise_quantize.cu",

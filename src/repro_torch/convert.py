@@ -9,7 +9,10 @@ a leading ``[L, ...]`` axis (``transformer._stacked_layers``, for
 with one dict of tensors per layer (the reference's per-layer subtree,
 unstacked).  Prequantized ``{"q", "s"}`` weight leaves unstack the same
 way.  :func:`to_reference_layout` is the inverse: what an artifact bundle
-stores, so a bundle the port writes is the reference's format.
+and a checkpoint store, so the files the port writes are the reference's
+format.  The optimizer state (``{"mu", "nu", "step"}``, the moments
+shaped like the params) converts both ways with
+:func:`opt_state_to_reference_layout` and :func:`as_port_opt_state`.
 """
 from __future__ import annotations
 
@@ -88,3 +91,20 @@ def to_reference_layout(params: dict) -> dict:
     else:
         out["layers"] = _stack([_map(lp, _to_numpy) for lp in layers])
     return out
+
+
+def opt_state_to_reference_layout(state: dict) -> dict:
+    """The port's AdamW state -> the reference's: both moment trees
+    stacked (:func:`to_reference_layout`), ``step`` a numpy int32."""
+    return {"mu": to_reference_layout(state["mu"]),
+            "nu": to_reference_layout(state["nu"]),
+            "step": _to_numpy(state["step"]).astype(np.int32)}
+
+
+def as_port_opt_state(cfg, state: dict, device) -> dict:
+    """An AdamW state in either layout -> the port's on ``device``: the
+    moments as :func:`as_port_params`, ``step`` a 0-d int32 tensor."""
+    step = np.asarray(_to_numpy(state["step"]), np.int32)
+    return {"mu": as_port_params(cfg, state["mu"], device),
+            "nu": as_port_params(cfg, state["nu"], device),
+            "step": torch.from_numpy(step).to(device)}

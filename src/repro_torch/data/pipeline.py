@@ -1,7 +1,9 @@
 """Deterministic token pipeline (counterpart of ``repro/data/pipeline.py``):
 packs the byte-tokenized synthetic corpus into (tokens, labels) LM
 batches.  Every row derives from (seed, global row index) alone, so the
-same config yields the reference's batches."""
+same config yields the reference's batches.  With ``n_hosts`` > 1 a host
+takes its ``global_batch / n_hosts`` rows of every step; the pipeline's
+state is the next step, stored in a checkpoint's metadata."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,6 +20,8 @@ class PipelineConfig:
     seq_len: int = 256
     global_batch: int = 8
     seed: int = 0
+    n_hosts: int = 1
+    host_id: int = 0
 
 
 class TokenPipeline:
@@ -28,6 +32,10 @@ class TokenPipeline:
         text = text if text is not None else corpus(seed=cfg.seed)
         self.ids = tok.encode(text, bos=False)
         self.step = 0
+        if cfg.global_batch % cfg.n_hosts:
+            raise ValueError(f"global_batch {cfg.global_batch} does not "
+                             f"split over {cfg.n_hosts} hosts")
+        self.host_batch = cfg.global_batch // cfg.n_hosts
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         return self
@@ -39,9 +47,10 @@ class TokenPipeline:
         return self.ids[start: start + self.cfg.seq_len + 1]
 
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
-        base = step * self.cfg.global_batch
+        base = (step * self.cfg.global_batch
+                + self.cfg.host_id * self.host_batch)
         arr = np.stack([self._window(base + r)
-                        for r in range(self.cfg.global_batch)])
+                        for r in range(self.host_batch)])
         return {"tokens": arr[:, :-1].astype(np.int32),
                 "labels": arr[:, 1:].astype(np.int32)}
 
@@ -49,3 +58,10 @@ class TokenPipeline:
         b = self.batch_at(self.step)
         self.step += 1
         return b
+
+    # -- checkpoint integration ------------------------------------------
+    def state_dict(self) -> Dict[str, int]:
+        return {"step": self.step}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        self.step = int(state["step"])

@@ -1,11 +1,16 @@
 """Attention of the dense decoder (counterpart of
-``repro/models/attention.py``): the full-sequence eager ``attention`` of
-the calibration forward, and the three paged serving steps.
+``repro/models/attention.py``): the full-sequence ``attention`` of the
+training, calibration and prefill forward, the one-token decode against a
+dense cache, and the three paged serving steps.
 
 The dense path (``sdpa`` with a ``causal_bias``) is the reference's op
 sequence; it also reports each layer's post-RoPE K/V to an optional
 observer (:func:`set_kv_observer`), which is how int4 KV pages calibrate
-their per-head outlier channels.
+their per-head outlier channels.  With a dense cache (:func:`init_cache`,
+or ``serve.kvcache.init_int8_cache``: ``[b, s_max, kvh, dh]`` a layer)
+the full-sequence forward writes its K/V at positions [0, s) through the
+cache's quantizer (``serve/kvq.py``), and :func:`attention_decode` writes
+one position and attends the dequantized cache.  Both write IN PLACE.
 
 The paged steps (decode, speculative verify, chunked prefill) project QKV
 through the quantization ctx (``attn_qkv``), apply RoPE, quantize the new
@@ -104,18 +109,65 @@ def causal_bias(sq: int, sk: int, window: int, window_flag: bool,
 
 
 def attention(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
-              positions: torch.Tensor, *, window_flag: bool = False
-              ) -> torch.Tensor:
-    """Full-sequence causal attention (the calibration forward).  x
-    [b, s, d]; positions [b, s].  Reports the post-RoPE K/V to the KV
-    observer under the ctx's site prefix."""
+              positions: torch.Tensor, *, window_flag: bool = False,
+              cache: Optional[dict] = None) -> torch.Tensor:
+    """Full-sequence causal attention (training, calibration, prefill).
+    x [b, s, d]; positions [b, s].  Reports the post-RoPE K/V to the KV
+    observer under the ctx's site prefix.  ``cache``: one layer's dense
+    cache arrays ([b, s_max, kvh, dh], int8 caches with their scales),
+    written in place at positions [0, s) through the cache's quantizer."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, ctx, x, positions)
     if _KV_OBSERVER is not None:
         _KV_OBSERVER(getattr(ctx, "prefix", ""), k, v)
+    if cache is not None:
+        for n, val in kvq.from_cache(cache).quantize(k, v).items():
+            cache[n][:, :s] = val.to(cache[n].dtype)
     bias = causal_bias(s, s, cfg.window_size, window_flag, device=x.device)
     o = sdpa(cfg, q, k, v, bias).reshape(b, s, cfg.n_heads * cfg.head_dim)
     return ctx("attn_out", o, p["wo"])
+
+
+def attention_decode(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
+                     cache: dict, *, window_flag: bool = False
+                     ) -> Tuple[torch.Tensor, dict]:
+    """One-token decode against a dense cache.  x [b, 1, d]; ``cache``
+    holds one layer's k/v [b, s_max, kvh, dh] (int8 caches add
+    k/v_scale [b, s_max, kvh, 1]) and ``pos``, a 0-d int32 tensor.  The
+    new K/V are quantized by the cache's mode and written at ``pos`` in
+    place; the whole cache is read back dequantized and attended with the
+    causal (and, for a local layer, window) mask.  Returns (out, cache)."""
+    b = x.shape[0]
+    pos = cache["pos"]
+    positions = pos.reshape(1, 1).expand(b, 1)
+    q, k, v = _project_qkv(cfg, p, ctx, x, positions)
+    quantizer = kvq.from_cache(cache)
+    at = pos.reshape(1).long()
+    for n, val in quantizer.quantize(k, v).items():
+        cache[n].index_copy_(1, at, val.to(cache[n].dtype))
+    kk, vv = quantizer.dequantize(cache, x.dtype)
+    kpos = torch.arange(kk.shape[1], device=x.device)
+    allow = kpos <= pos
+    if window_flag:
+        allow = allow & (kpos > pos - cfg.window_size)
+    bias = torch.where(allow, 0.0, NEG_INF).float()[None, None, None, :]
+    o = sdpa(cfg, q, kk, vv, bias).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return ctx("attn_out", o, p["wo"]), cache
+
+
+def n_attn_layers(cfg: ModelConfig) -> int:
+    """Number of KV-cache-bearing attention layers in the stack."""
+    return sum(1 for b in cfg.blocks if b in ("attn", "local", "global", "moe"))
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               dtype=torch.bfloat16, device="cuda") -> dict:
+    """Zero dense KV cache, stacked [L, b, s_max, kvh, dh], and ``pos`` 0
+    (a 0-d int32 tensor)."""
+    shape = (n_attn_layers(cfg), batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def _scatter(cache: dict, parts: dict, page_idx: torch.Tensor,

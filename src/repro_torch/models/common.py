@@ -55,6 +55,7 @@ class ModelConfig:
     scale_embed: bool = False
     tie_embeddings: bool = True
     dtype: str = "float32"                       # compute dtype
+    remat: bool = False                          # activation checkpointing
 
     @property
     def head_dim(self) -> int:

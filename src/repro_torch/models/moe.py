@@ -1,12 +1,16 @@
 """Mixture-of-Experts block (llama4-scout 16e top-1 + shared expert, dbrx
-16e top-4) with group-local dispatch, for inference — counterpart of
+16e top-4) with group-local dispatch — counterpart of
 ``repro/models/moe.py``.
 
   * Tokens are routed within groups, each with its own capacity: one flat
-    group at decode (s == 1), the batch rows above that (verify blocks and
-    prefill chunks).  Inference is dropless: the capacity is the group's
-    token count padded to 8, so a token goes through exactly the experts
-    it picked and a decode step reproduces ``forward``.
+    group at decode (s == 1), the batch rows above that (training, verify
+    blocks and prefill chunks).  Inference is dropless: the capacity is
+    the group's token count padded to 8, so a token goes through exactly
+    the experts it picked and a decode step reproduces ``forward``.
+    Training (``train=True``) sizes each group with the capacity factor,
+    ``1.25 x top_k x tokens / experts`` padded to 8, and the assignments
+    past an expert's capacity drop (the token passes through the
+    residual).
   * The router runs in f32: softmax, top-k (ties to the lower expert
     index, as ``jax.lax.top_k``), the gates renormalized with the sum
     floored at 1e-9.  Assignments sort stably by expert; a token's slot
@@ -20,17 +24,14 @@
     ``mlp()`` (eager sites ``layer{i}/mlp_up|down``).
   * The Switch aux load-balance loss comes back beside the output.
 
-Not here: the trainer's capacity-factor dispatch (the reference's
-``train=True``: capacity 1.25 x top_k x tokens / experts, over-capacity
-tokens dropped) and ``set_expert_sharding`` (the expert-parallel sharding
-constraint on the dispatch buffer); they join with the training and
-sharding slices.  ``_dispatch_group`` keeps the reference's drop mask,
-so a capacity under the group's token count drops as there.
+Not here: ``set_expert_sharding`` (the expert-parallel sharding
+constraint on the dispatch buffer); it joins with the sharded training
+slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,11 +52,17 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
     return p
 
 
-def _capacity(cfg: ModelConfig, n_tokens: int) -> int:
-    """Per-expert slot count for one dispatch group, the reference's
-    dropless sizing (its ``factor=None``): top-k picks distinct experts,
-    so ``n_tokens`` slots never overflow; padded to 8."""
-    return max(8, ((n_tokens + 7) // 8) * 8)
+def _capacity(cfg: ModelConfig, n_tokens: int,
+              factor: Optional[float] = None) -> int:
+    """Per-expert slot count for one dispatch group, padded to 8.
+    ``factor=None`` (the default, as the port's inference dispatch) is the
+    dropless sizing: top-k picks distinct experts, so ``n_tokens`` slots
+    never overflow; the trainer passes the reference's 1.25."""
+    if factor is None:
+        c = n_tokens
+    else:
+        c = int(factor * cfg.top_k * n_tokens / cfg.n_experts)
+    return max(8, ((c + 7) // 8) * 8)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -124,10 +131,12 @@ def _combine_group(out_e: torch.Tensor, slot, st, sg, keep, t: int):
     return y.reshape(*lead, t, d)
 
 
-def moe(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor, *,
+        train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [b, s, d] -> (out [b, s, d], aux loss).  Groups are the batch rows
-    when s > 1, one flat group at decode (s == 1)."""
+    when s > 1, one flat group at decode (s == 1).  ``train=True`` sizes
+    the groups with the capacity factor and drops the overflow; the
+    default is dropless."""
     b, s, d = x.shape
     e = cfg.n_experts
     if s > 1:
@@ -137,7 +146,7 @@ def moe(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor
 
     logits = xg.float() @ p["router"].float()                     # [g, tg, e]
     probs = torch.softmax(logits, dim=-1)
-    cap = _capacity(cfg, tg)
+    cap = _capacity(cfg, tg, factor=1.25 if train else None)
     buf, slot, st, sg, keep = _dispatch_group(cfg, xg, probs, cap)
 
     # the expert FFN, quantized per expert: groups fold into the token dim

@@ -1,6 +1,7 @@
 """The decoder stack of the dense and MoE families: parameter init, the
-eager full-sequence ``forward`` (calibration) and the three paged serving
-steps.
+eager full-sequence ``forward`` (training, calibration, prefill into a
+dense cache), the LM loss, the dense-cache ``decode_step`` and the three
+paged serving steps.
 
 Counterpart of the dense and MoE families of
 ``repro/models/transformer.py``.  The reference scans over
@@ -10,21 +11,27 @@ stacked tree), and sites carry eager names (``layer{i}/...``) so a
 ``QuantCtx`` finds each layer's packed kernel buffers and a
 ``CollectCtx`` attributes calibration stats per layer.  A layer with a
 ``"moe"`` subtree runs the mixture-of-experts block (``models/moe.py``)
-where a dense layer runs its MLP.
+where a dense layer runs its MLP.  ``cfg.remat`` recomputes each layer's
+activations in the backward pass (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` of its scan body.  The reference's
+``scan=`` and ``qparams=`` arguments have no counterpart: there is no
+scan, and per-layer quantization data comes from the ctx.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.context import FpCtx
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import moe as E
-from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
-                                       softcap)
+from repro_torch.models.common import (ModelConfig, apply_norm,
+                                       cross_entropy, dense_init, softcap)
 from repro_torch.parallel import serve_sharding as TP
 
 
@@ -113,9 +120,10 @@ def _layer_caches(kv: dict, i: int):
     return {n: a[i] for n, a in kv.items()}
 
 
-def _block(cfg, lp, ctx, x, attend):
-    """One pre-norm layer; ``attend(p, ctx, h)`` is the attention flavour.
-    Returns (x, the MoE aux loss, or None for a dense layer)."""
+def _block(cfg, lp, ctx, x, attend, train: bool = False):
+    """One pre-norm layer; ``attend(p, ctx, h)`` is the attention flavour;
+    ``train`` selects the MoE block's capacity-factor dispatch.  Returns
+    (x, the MoE aux loss, or None for a dense layer)."""
     h = apply_norm(cfg, lp["ln1"], x)
     a = attend(lp["attn"], ctx, h)
     if cfg.sandwich_norm:
@@ -123,7 +131,7 @@ def _block(cfg, lp, ctx, x, attend):
     x = x + a
     h = apply_norm(cfg, lp["ln2"], x)
     if "moe" in lp:
-        m, aux = E.moe(cfg, lp["moe"], ctx, h)
+        m, aux = E.moe(cfg, lp["moe"], ctx, h, train=train)
     else:
         m, aux = M.mlp(cfg, lp["mlp"], ctx, h), None
     if cfg.sandwich_norm:
@@ -160,15 +168,20 @@ def _run(cfg, params, x, kv, routing, ctx, step):
     return _head(cfg, params, x)
 
 
-def forward(cfg: ModelConfig, params, tokens, ctx=None, *, extra=None) -> dict:
+def forward(cfg: ModelConfig, params, tokens, ctx=None, *, extra=None,
+            train: bool = False, cache=None) -> dict:
     """Full-sequence eager forward of the dense and MoE families (the
-    reference's ``forward(..., scan=False)``, inference dispatch): sites
-    carry ``layer{i}/`` names, so a ``CollectCtx`` attributes calibration
-    stats per layer, and each layer's attention reports its K/V to the KV
-    observer.  tokens [b, s]; ``extra={"patches": [b, n_patches, d]}``
-    prefixes a VLM's patch embeddings (``cfg.n_patches``).  Returns
-    {"logits": [b, s', V], "aux": the summed MoE aux loss (0 for dense)},
-    s' = s plus the patches."""
+    reference's ``forward(..., scan=False)``): sites carry ``layer{i}/``
+    names, so a ``CollectCtx`` attributes calibration stats per layer, and
+    each layer's attention reports its K/V to the KV observer.  tokens
+    [b, s]; ``extra={"patches": [b, n_patches, d]}`` prefixes a VLM's
+    patch embeddings (``cfg.n_patches``).  ``train=True`` selects the MoE
+    capacity-factor dispatch (the inference default is dropless).
+    ``cache`` (``attention.init_cache`` or ``kvcache.init_int8_cache``)
+    receives every layer's K/V at positions [0, s') in place (prefill).
+    Returns {"logits": [b, s', V], "aux": the summed MoE aux loss (0 for
+    dense), "cache": the cache with ``pos`` s', or None}, s' = s plus the
+    patches."""
     if cfg.family not in ("dense", "moe"):
         raise ValueError(f"the port's forward runs the dense and MoE "
                          f"families, not {cfg.family}")
@@ -177,13 +190,61 @@ def forward(cfg: ModelConfig, params, tokens, ctx=None, *, extra=None) -> dict:
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     aux_total = torch.zeros((), device=x.device)
+    kv = None if cache is None else {n: a for n, a in cache.items()
+                                     if n != "pos"}
+    remat = cfg.remat and torch.is_grad_enabled()
     for i, (lp, kind) in enumerate(zip(params["layers"], cfg.blocks)):
-        attend = (lambda p, c, h, flag=kind == "local":
-                  A.attention(cfg, p, c, h, positions, window_flag=flag))
-        x, aux = _block(cfg, lp, _Named(ctx, f"layer{i}/"), x, attend)
+        c_i = None if kv is None else _layer_caches(kv, i)
+        attend = (lambda p, c, h, flag=kind == "local", c_i=c_i:
+                  A.attention(cfg, p, c, h, positions, window_flag=flag,
+                              cache=c_i))
+        layer = functools.partial(_block, cfg, lp, _Named(ctx, f"layer{i}/"),
+                                  attend=attend, train=train)
+        if remat:
+            x, aux = checkpoint(layer, x, use_reentrant=False)
+        else:
+            x, aux = layer(x)
         if aux is not None:
             aux_total = aux_total + aux
-    return {"logits": _head(cfg, params, x), "aux": aux_total}
+    new_cache = None
+    if cache is not None:
+        new_cache = {**cache, "pos": torch.full((), s, dtype=torch.int32,
+                                                device=x.device)}
+    return {"logits": _head(cfg, params, x), "aux": aux_total,
+            "cache": new_cache}
+
+
+def lm_loss(cfg: ModelConfig, params, batch, ctx=None, *,
+            aux_weight: float = 0.01, train: bool = True):
+    """The trainer's loss: batch {"tokens": [b, s], "labels": [b, s],
+    optional "mask", "patches"} (tensors on the params' device) ->
+    (CE + aux_weight x MoE aux, {"ce", "aux"}).  ``train`` (default True)
+    selects the capacity-factor MoE dispatch; a VLM's loss runs over the
+    text positions only."""
+    extra = {"patches": batch["patches"]} if "patches" in batch else None
+    out = forward(cfg, params, batch["tokens"], ctx, extra=extra, train=train)
+    logits = out["logits"]
+    if cfg.n_patches and "patches" in batch:
+        logits = logits[:, -batch["tokens"].shape[1]:]
+    loss = cross_entropy(logits, batch["labels"], cfg.vocab_size,
+                         batch.get("mask"))
+    return loss + aux_weight * out["aux"], {"ce": loss, "aux": out["aux"]}
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache, ctx=None
+                ) -> Tuple[torch.Tensor, dict]:
+    """One token against a dense cache (from ``forward(..., cache=...)``
+    or zeros) for the dense and MoE families.  tokens [b, 1] -> (logits
+    [b, 1, V], the cache with ``pos`` + 1); the cache arrays are written
+    in place."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the port's decode_step runs the dense and MoE "
+                         f"families, not {cfg.family}")
+    pos = cache["pos"]
+    kv = {n: a for n, a in cache.items() if n != "pos"}
+    logits = _run(cfg, params, _embed(cfg, params, tokens), kv,
+                  {"pos": pos}, ctx, A.attention_decode)
+    return logits, {**cache, "pos": pos + 1}
 
 
 def decode_step_paged(cfg: ModelConfig, params, tokens, kv: dict,

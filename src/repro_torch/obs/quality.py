@@ -30,6 +30,14 @@ module gives the two quantization seams an opt-in observer:
 Everything accumulates in plain host-side numpy, in the reference's
 arithmetic; ``snapshot()`` folds it into a JSON-able dict for
 ``launch/serve.py --json-out`` and tests.
+
+Under tensor-parallel serving a rank's pool holds only its KV heads, and
+the hot-channel criterion is relative to every channel: ``sample_pool``
+all-gathers the ranks' per-channel amax and masks along the head axis and
+all-reduces the element and saturation counts before it applies it, so
+every rank's snapshot equals the single-device one.  The scheduler samples
+at the same step on every rank, so each reaches the collectives; the
+replicated fallback and one device make none.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 DEFAULT_OUTLIER_RATIO = 4.0     # channel amax > ratio * median => "hot now"
 _FLOOR = 1e-6
@@ -49,6 +58,24 @@ def _host(a) -> np.ndarray:
             a = a.float()
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def _gather_heads(pool, ch_amax: np.ndarray, mask: Optional[np.ndarray],
+                  counts: np.ndarray):
+    """A sharded pool's per-channel amax [kvh_local, dh] and mask (the
+    rank's heads) -> every head's, in rank order (the pool's contiguous
+    head runs), and its [elements, saturated] summed over the group."""
+    shard, dev = pool.shard, pool.device
+    local = np.stack([ch_amax, mask if mask is not None
+                      else np.zeros_like(ch_amax)]).astype(np.float32)
+    part = torch.from_numpy(local).to(dev)
+    parts = [torch.empty_like(part) for _ in range(shard.size)]
+    dist.all_gather(parts, part, group=shard.group)
+    both = _host(torch.cat(parts, dim=1))          # [2, kvh, dh]
+    total = torch.from_numpy(counts).to(dev)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=shard.group)
+    return (both[0], None if mask is None else both[1] > 0,
+            _host(total))
 
 
 class SiteQuality:
@@ -162,9 +189,6 @@ class QualityObserver:
                 q = unpack_int4(q)
             q = _host(q)
             st = self._site(f"kv/{side}")
-            st.calls += 1
-            st.elements += q.size
-            st.saturated += int((np.abs(q) >= qmax).sum())
             # the channel criterion runs on dequantized magnitudes, so the
             # calibrated 2^e redistribution (which exists to DE-hot the
             # outliers in the stored ints) does not hide them
@@ -180,6 +204,13 @@ class QualityObserver:
             else:
                 mask = None
             ch_amax = deq.max(axis=(0, 1, 2))           # [kvh, dh]
+            counts = np.array([q.size, (np.abs(q) >= qmax).sum()], np.int64)
+            if pool.shard is not None:
+                ch_amax, mask, counts = _gather_heads(pool, ch_amax, mask,
+                                                      counts)
+            st.calls += 1
+            st.elements += int(counts[0])
+            st.saturated += int(counts[1])
             st.amax = max(st.amax, float(ch_amax.max()))
             hot = _hot_mask(ch_amax.reshape(-1), self.ratio).reshape(
                 ch_amax.shape)

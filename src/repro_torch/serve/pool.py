@@ -44,6 +44,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.attention import n_attn_layers
 from repro_torch.models.common import ModelConfig
 from repro_torch.parallel import serve_sharding as SS
 from repro_torch.serve import kvq
@@ -57,10 +58,6 @@ def bucket_pow2(n: int, cap: int) -> int:
     while b < n:
         b *= 2
     return min(b, cap)
-
-
-def n_attn_layers(cfg: ModelConfig) -> int:
-    return sum(1 for b in cfg.blocks if b in ("attn", "local", "global", "moe"))
 
 
 class PagePool:
@@ -99,6 +96,9 @@ class PagePool:
             if shard is not None else None)
         self.heads_sharded = SS.heads_sharded(self.kv_specs)
         self.kv_shards = shard.size if self.heads_sharded else 1
+        # the group whose ranks hold the other heads (None: this rank
+        # holds every head, on one device or the replicated fallback)
+        self.shard = shard if self.heads_sharded else None
         # each rank allocates only its part: pages contiguous, never a
         # slice of a whole pool (the paged kernel takes contiguous pages)
         self.kv: Dict[str, torch.Tensor] = {

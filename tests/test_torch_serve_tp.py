@@ -30,6 +30,7 @@ import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.obs.quality import QualityObserver
 from repro_torch.obs.trace import TraceRecorder
 from repro_torch.parallel import serve_sharding as SS
 from repro_torch.parallel.ranks import run_ranks
@@ -59,6 +60,9 @@ SCENARIOS = {
     "gqa": ("gqa", "params", dict(kv_mode="fp"), PROMPTS, 8, None),
     "fused_int8": ("base", "artifact", dict(kv_mode="int8"), PROMPTS, 8, None),
 }
+# scenarios served again with the quality observer sampling every step
+QUALITY = ("int8", "int4")
+AMAX_RTOL = 1e-6           # the observer's amax against the reference's
 COUNTERS = ("decode_steps", "prefill_steps", "prefix_hits", "cow_copies",
             "preemptions", "spec_verify_steps", "spec_proposed",
             "spec_accepted", "tokens_out", "cache_bytes", "bytes_per_token")
@@ -96,6 +100,14 @@ def _serve(models, name, tp, **extra):
             "engine": eng}
 
 
+def _observed(models, name, tp):
+    """The quality observer's snapshot of one scenario's serve, sampling
+    the pool at every scheduler step."""
+    obs = QualityObserver(sample_every=1)
+    _serve(models, name, tp, quality=obs)
+    return obs.snapshot()
+
+
 def _rank(rank, tp, models, out_dir):
     """One rank of a ``tp``-way world: every scenario, the observability
     surface, the collectives' algebra and the group checks."""
@@ -105,6 +117,7 @@ def _rank(rank, tp, models, out_dir):
         r = _serve(models, name, tp)
         del r["engine"]
         res[name] = r
+    res["quality"] = {name: _observed(models, name, tp) for name in QUALITY}
     # observability: gauges, report, recorder metadata, Chrome labels
     rec = TraceRecorder()
     r = _serve(models, "fp", tp, recorder=rec)
@@ -168,6 +181,7 @@ def reference(tmp_path_factory):
     from repro.core.muxq import QuantConfig as JQuantConfig
     from repro.core.policy import SitePolicy as JSitePolicy
     from repro.models import transformer as JT
+    from repro.obs.quality import QualityObserver as JQualityObserver
     from repro.quantize import quantize_model
     from repro.serve.engine import Request as JRequest
     from repro.serve.engine import ServeEngine as JServeEngine
@@ -192,16 +206,21 @@ def reference(tmp_path_factory):
     models = {"base": (tcfg, trees["base"], bundle),
               "gqa": (tcfg.replace(n_kv_heads=2), trees["gqa"], bundle)}
     jcfgs = {"base": cfg, "gqa": gcfg}
-    streams = {}
+    streams, quality = {}, {}
     for name, (model, served, kw, prompts, max_new, arrivals) in SCENARIOS.items():
         jserved = art if served == "artifact" else jax.tree.map(
             jnp.asarray, trees[model])
-        eng = JServeEngine(jcfgs[model], jserved, cache_dtype=jnp.float32,
-                           **{**COMMON, **kw})
-        reqs = [JRequest(p, max_new_tokens=max_new) for p in prompts]
-        eng.generate(reqs, arrivals=arrivals)
+        observers = [None] + ([JQualityObserver(sample_every=1)]
+                              if name in QUALITY else [])
+        for obs in observers:
+            eng = JServeEngine(jcfgs[model], jserved, cache_dtype=jnp.float32,
+                               quality=obs, **{**COMMON, **kw})
+            reqs = [JRequest(p, max_new_tokens=max_new) for p in prompts]
+            eng.generate(reqs, arrivals=arrivals)
         streams[name] = [r.out_tokens for r in reqs]
-    return {"models": models, "streams": streams}
+        if name in QUALITY:
+            quality[name] = observers[-1].snapshot()
+    return {"models": models, "streams": streams, "quality": quality}
 
 
 @pytest.fixture(scope="module")
@@ -309,6 +328,33 @@ def test_tp_quantized_artifact_parity(ranks, tp1, tp):
     on every rank, pages sharded by head, streams unchanged."""
     r, _ = _every_rank_serves(ranks, tp1, "fused_int8", tp)
     assert r["kv_shards"] == tp
+
+
+def _assert_quality_equal(snap, jsnap, amax_rtol=0.0):
+    assert snap["pool_samples"] == jsnap["pool_samples"] > 0
+    assert set(snap["sites"]) == set(jsnap["sites"]) == {"kv/k", "kv/v"}
+    for name, s in snap["sites"].items():
+        j = jsnap["sites"][name]
+        for key in ("calls", "elements", "clip_rate", "hot_channels",
+                    "outlier_hit_rate"):
+            assert s[key] == j[key], (name, key, s[key], j[key])
+        np.testing.assert_allclose(s["amax"], j["amax"], rtol=amax_rtol,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("name", QUALITY)
+def test_tp_quality_snapshot_equals_single_device(reference, ranks, tp, name):
+    """Every rank's KV-page quality snapshot, from its own heads and the
+    group's gathered channel amax and counts, equals the port's tp = 1
+    snapshot exactly and the reference's global one (amax within
+    AMAX_RTOL)."""
+    one = _observed(reference["models"], name, None)
+    _assert_quality_equal(one, reference["quality"][name], AMAX_RTOL)
+    if name == "int4":
+        assert one["sites"]["kv/k"]["hot_channels"] > 0
+    for rank, res in enumerate(ranks[tp]):
+        _assert_quality_equal(res["quality"][name], one)
 
 
 @pytest.mark.parametrize("tp", [2, 4])
