@@ -156,13 +156,30 @@ its seconds):
    the logits are within LOGIT_RTOL of the paged ``decode_step_paged`` on
    f32 pages; with the fused artifact on an int8 cache one quantize and
    one GEMM a site a step.
-18. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
+18. The SSM, hybrid and encoder-decoder families at full width and full
+   depth (``families_phase``): mamba2-370m (48 layers), zamba2-1.2b (38
+   mamba layers and one shared attention + MLP block used 6 times) and
+   whisper-tiny (4 + 4 layers, 1500 frames), seeded weights with 8
+   ``ln1`` gain channels x20 (every layer, the encoder's too), calibrated
+   on 2 batches and packed into a uniform fused MUXQ artifact
+   (``quantize_model``; whisper's forward carries the frames): (a) on fp weights, ``decode_step`` after a
+   300-token prefill within FAMILY_DECODE_RTOL of the forward's last
+   position; (b) ``make_prefill_step`` (4 x 300 tokens; whisper 4 x 8)
+   and 16 ``make_serve_step`` tokens through the kernels and through
+   their plain versions: the same stream, every site call's codes and
+   scales equal, logits within FUSED_RTOL; (c) one quantize and one GEMM
+   a site: a decode step 144 / 138 / 28 of each, the prefill 144 / 138 /
+   44 (whisper's encoder adds 16); (d) both kernels bit-equal and timed
+   at every site shape at M 4 and the prefill M (whisper's encoder sites
+   and ``cross_kv`` at the memory's M 6000) beside ``torch._int_mm``;
+   each model's seconds and peak device memory.
+19. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
 ``launches`` in the JSON line counts the launches of the full-width
 serving runs of phases 5, 8, 10, 11, 12, 14 and 15, of every rank of
-phase 16, and of phase 17's fused evaluation and int8 dense-cache serve
-(each run starts from zero counts); the traced serve of phase 6
+phase 16, of phase 17's fused evaluation and int8 dense-cache serve and
+of phase 18's three fused serves (each run starts from zero counts); the traced serve of phase 6
 and the launcher's reduced-width run
 of phase 9 keep their own counts in ``chip_smoke.json``.  ``flash_attention`` is on no
 serving path and has 0.  It imports nothing of JAX or of the
@@ -251,6 +268,20 @@ SURGERY_RTOL = 2e-3     # (c) fp perplexity moved by the outlier injection
                         # (tests/test_paper_repro.py's claim)
 EVAL_CE_RTOL = 1e-5     # (f) fused evaluation, kernels vs plain versions
 N_DECODE = 16           # (g) dense-cache decode steps
+# phase 18: the SSM, hybrid and encoder-decoder families, full width and
+# full depth
+FAMILY_ARCHS = ("mamba2-370m", "zamba2-1.2b", "whisper-tiny")
+FAMILY_BATCH = 4
+FAMILY_PROMPT = 300     # (a), and mamba2 / zamba2 prefill: one 256-step SSD
+                        # chunk crossed, the second padded
+FAMILY_ENC_PROMPT = 8   # whisper's prefill prompt (its memory: 1500 frames)
+FAMILY_DECODE = 16      # serve steps after the prefill
+FAMILY_HOT = 8          # ln1 gain channels x20 in every layer
+FAMILY_DECODE_RTOL = 1e-3   # (a) fp decode vs the forward's last position,
+                            # relative to max |logits|: the SSD's chunked
+                            # sums against the recurrence's, the attention
+                            # over the cache against the full one, over the
+                            # whole depth
 
 
 def smi_line() -> str:
@@ -814,6 +845,311 @@ def train_phase(torch, dev, cfg, card, reset_counts, read_counts, flush,
           f"{same:.3f} of its tokens equal the fp stream's  [{card}]",
           flush=True)
     shutil.rmtree(scratch, ignore_errors=True)
+    return rep, runs
+
+
+def families_phase(torch, dev, cfgs, card, reset_counts, read_counts, flush,
+                   record, timings, phases):
+    """Phase 18: the SSM, hybrid and encoder-decoder families served at
+    full width and full depth from a fused MUXQ artifact, one model after
+    another (``cfgs``: arch -> config).  Returns (the phase's report,
+    {label: launch counts} of its main-path runs: each model's fused
+    prefill and serve through the kernels)."""
+    import numpy as np
+
+    from repro_torch.core.context import FpCtx
+    from repro_torch.core.policy import SitePolicy
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import muxq_gemm as G
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as RQ
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.steps import (MUXQ_FUSED_SERVE, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import n_attn_layers
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.quantize import quantize_model, split_site
+
+    rep, runs = {}, {}
+    policy = SitePolicy.uniform(MUXQ_FUSED_SERVE)
+    for arch, cfg in cfgs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_gib = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        fam = cfg.family
+        # sites a decode step runs (one quantize and one GEMM each), and
+        # those the prefill adds (the encoder's)
+        per_step = {"ssm": 3 * cfg.n_layers,
+                    "hybrid": 3 * cfg.n_layers + 4 * n_attn_layers(cfg),
+                    "encdec": 7 * cfg.n_layers}[fam]
+        prefill_sites = per_step + 4 * cfg.n_enc_layers
+        s = FAMILY_ENC_PROMPT if cfg.is_enc_dec else FAMILY_PROMPT
+        b = FAMILY_BATCH
+
+        def batch_of(seed, s_):
+            g_ = torch.Generator().manual_seed(seed)
+            out = {"tokens": torch.randint(0, cfg.vocab_size, (b, s_),
+                                           generator=g_).to(dev)}
+            if cfg.is_enc_dec:
+                out["frames"] = torch.randn(
+                    b, cfg.n_audio_frames, cfg.d_model, generator=g_).to(dev)
+            return out
+
+        def extra_of(batch):
+            return {"frames": batch["frames"]} if cfg.is_enc_dec else None
+
+        # seeded weights, 8 ln1 gain channels x20 in every layer (the
+        # encoder's too) -------------------------------------------------------
+        params = T.init_params(cfg, seed=0, device=dev)
+        hot = torch.randperm(cfg.d_model, generator=torch.Generator(
+        ).manual_seed(1))[:FAMILY_HOT].to(dev)
+        for lp in params["layers"] + params.get("enc_layers", []):
+            if cfg.norm == "rmsnorm":
+                lp["ln1"]["gain"][hot] = 19.0       # (1 + gain): x20
+            else:
+                lp["ln1"]["gain"][hot] *= 20.0
+        n_par = sum(t.numel() for t in tree_leaves(params))
+
+        # calibrate (2 batches) and pack a uniform fused MUXQ artifact -------
+        calib = [batch_of(20 + i, s) for i in range(2)]
+        forward = None
+        if cfg.is_enc_dec:   # the default calibration forward drops frames
+            def forward(p, batch, ctx):
+                return T.forward(cfg, p, batch["tokens"], ctx,
+                                 extra=extra_of(batch))
+        else:                # the default forward takes host token arrays
+            calib = [{"tokens": c_["tokens"].cpu().numpy()} for c_ in calib]
+        art = quantize_model(cfg, params, calib, policy, forward=forward,
+                             device=dev)
+        t_art = time.perf_counter() - t0
+        kinds = {}
+        for site in art.kernel_buffers:
+            kind, _, base = split_site(site)
+            kinds.setdefault(f"{kind}/{base}", 0)
+            kinds[f"{kind}/{base}"] += 1
+        runs_2e = sum(1 for b_ in art.kernel_buffers.values()
+                      if int((np.asarray(b_["block_scale"]) > 1).sum()))
+        if not runs_2e:
+            raise AssertionError(f"{arch}: no site carries an outlier run")
+
+        # (a) fp weights: decode_step against forward's last position ---------
+        fa = batch_of(40, FAMILY_PROMPT + 1)
+        with torch.no_grad():
+            full = T.forward(cfg, params, fa["tokens"], FpCtx(),
+                             extra=extra_of(fa))["logits"][:, -1]
+            pre_fp = make_prefill_step(cfg, FAMILY_PROMPT + 1,
+                                       kv_dtype=torch.float32, device=dev)
+            _, cache = pre_fp(params, {**fa, "tokens":
+                                       fa["tokens"][:, :-1]})
+            dec, _ = T.decode_step(cfg, params, fa["tokens"][:, -1:], cache,
+                                   FpCtx())
+        scale = float(full.abs().max())
+        gap_a = float((dec[:, 0] - full).abs().max()) / scale
+        if not (torch.isfinite(dec).all() and gap_a <= FAMILY_DECODE_RTOL):
+            raise AssertionError(f"{arch} (a): decode logits {gap_a:.3g} of "
+                                 f"their scale off the forward's")
+        del full, cache, dec
+
+        # (b) fused serve, kernels and plain versions; (c) its launches -------
+        prompts = batch_of(30, s)
+        pre = make_prefill_step(cfg, s + FAMILY_DECODE, quant=art,
+                                kv_dtype=torch.float32, device=dev)
+        serve = make_serve_step(cfg, quant=art, device=dev)
+
+        def fused_serve(kernels):
+            """Tokens, last-position logits of every step, the codes and
+            scales every site quantized, and each step's launches."""
+            codes, logits, counts = [], [], []
+            k_rq, p_rq = ops.rowwise_quantize, kref.rowwise_quantize_ref
+            fwd, dstep = T.forward, T.decode_step
+
+            def rec_q(fn):
+                def wrapped(*a, **k):
+                    out = fn(*a, **k)
+                    codes.append(out)
+                    return out
+                return wrapped
+
+            def rec_fwd(*a, **k):
+                out = fwd(*a, **k)
+                logits.append(out["logits"][:, -1])
+                return out
+
+            def rec_dec(*a, **k):
+                out = dstep(*a, **k)
+                logits.append(out[0][:, -1])
+                return out
+            ops.rowwise_quantize = rec_q(k_rq)
+            kref.rowwise_quantize_ref = rec_q(p_rq)
+            T.forward, T.decode_step = rec_fwd, rec_dec
+            prev = dispatch.set_fused_impl("auto" if kernels else "ref")
+            try:
+                reset_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                tok, cache_ = pre(params, prompts)
+                torch.cuda.synchronize()
+                counts.append(read_counts())
+                stream = [tok]
+                for _ in range(FAMILY_DECODE):
+                    reset_counts()
+                    tok, cache_ = serve(params, {"tokens": tok[:, None],
+                                                 "cache": cache_})
+                    torch.cuda.synchronize()
+                    counts.append(read_counts())
+                    stream.append(tok)
+                secs = time.perf_counter() - t1
+            finally:
+                ops.rowwise_quantize, kref.rowwise_quantize_ref = k_rq, p_rq
+                T.forward, T.decode_step = fwd, dstep
+                dispatch.set_fused_impl(prev)
+            if int(cache_["pos"]) != s + FAMILY_DECODE:
+                raise AssertionError(f"{arch}: the cache ends at "
+                                     f"{int(cache_['pos'])}")
+            return torch.stack(stream, 1), logits, codes, counts, secs
+
+        stream_k, logits_k, codes_k, counts_k, secs = fused_serve(True)
+        stream_p, logits_p, codes_p, _, secs_p = fused_serve(False)
+        if not torch.equal(stream_k, stream_p):
+            raise AssertionError(f"{arch} (b): the kernels' stream "
+                                 f"{stream_k.tolist()} differs from the plain "
+                                 f"versions' {stream_p.tolist()}")
+        if not bool(((stream_k >= 0) & (stream_k < cfg.vocab_size)).all()):
+            raise AssertionError(f"{arch} (b): tokens out of range")
+        if len(codes_k) != len(codes_p) or not all(
+                torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
+                for x, y in zip(codes_k, codes_p)):
+            raise AssertionError(f"{arch} (b): the kernels' int8 codes or "
+                                 "scales differ from the plain versions'")
+        gap_b = max(float((x - y).abs().max()) / float(y.abs().max())
+                    for x, y in zip(logits_k, logits_p))
+        if len(logits_k) != FAMILY_DECODE + 1 or not gap_b <= FUSED_RTOL:
+            raise AssertionError(f"{arch} (b): logits {gap_b:.3g} of their "
+                                 f"scale off the plain versions'")
+        n_calls = len(codes_k)
+        del codes_k, codes_p, logits_k, logits_p
+        want_pre = {"rowwise_quantize": prefill_sites,
+                    "muxq_gemm": prefill_sites}
+        want_step = {"rowwise_quantize": per_step, "muxq_gemm": per_step}
+        got_pre = {k: v for k, v in counts_k[0].items() if v}
+        if got_pre != want_pre:
+            raise AssertionError(f"{arch} (c): the prefill launched "
+                                 f"{got_pre}, expected {want_pre}")
+        for c_ in counts_k[1:]:
+            if {k: v for k, v in c_.items() if v} != want_step:
+                raise AssertionError(f"{arch} (c): a decode step launched "
+                                     f"{c_}, expected {want_step}")
+        total = {}
+        for c_ in counts_k:
+            for k, v in c_.items():
+                total[k] = total.get(k, 0) + v
+        runs[f"{arch} fused MUXQ serve"] = total
+        peak = torch.cuda.max_memory_allocated() / 2**30 - held_gib
+
+        # (d) both kernels at every new site shape, served buffers ----------
+        m_pre = b * s
+        shapes = []
+        for site in sorted(art.kernel_buffers):
+            kind, idx, base = split_site(site)
+            if idx != 0:
+                continue
+            # encoder sites and cross_kv run on the memory's rows, always
+            m_mem = b * cfg.n_audio_frames
+            ms = ((m_mem,) if kind == "enc" or base == "cross_kv"
+                  else (4, m_pre))
+            shapes += [(site, m) for m in ms]
+        for site, m in shapes:
+            buf = dispatch.buffer_to(art.kernel_buffers[site], dev)
+            mw = dispatch.as_muxq_weights(buf)
+            k_pad, n = mw.w_int.shape
+            mask = np.asarray(art.masks[site], bool)
+            k = len(mask)
+            x = torch.randn(m, k, generator=torch.Generator().manual_seed(m + n))
+            x[:, torch.from_numpy(mask)] *= 40.0
+            x = x.to(dev)
+            qk, sk = RQ.rowwise_quantize(x, 8, gather_idx=mw.gather_idx,
+                                         in_scale=mw.in_scale)
+            qp, sp = RQ.rowwise_quantize_plain(x, 8, mw.gather_idx,
+                                               mw.in_scale)
+            yk = G.muxq_gemm(qk, mw.w_int, mw.block_scale, sk, mw.sw,
+                             bk=mw.bk)
+            yp = G.muxq_gemm_plain(qk, mw.w_int, mw.block_scale, sk, mw.sw,
+                                   mw.bk)
+            torch.cuda.synchronize()
+            if not (torch.equal(qk, qp) and torch.equal(sk, sp)
+                    and torch.equal(yk, yp) and torch.isfinite(yk).all()):
+                raise AssertionError(f"{arch} {site} M {m}: a kernel is not "
+                                     "bit-equal to its plain version")
+            record("rowwise_quantize", site=f"{arch} {site}", m=m, k=k,
+                   k_pad=k_pad, max_abs_err=0.0)
+            record("muxq_gemm", site=f"{arch} {site}", m=m, k_pad=k_pad, n=n,
+                   max_abs_err=0.0)
+            xq_pad = padded_rows(qk)        # outside the timed call
+            row = {"kernel": "muxq_gemm", "model": arch, "site": site,
+                   "m": m, "k": k, "k_pad": k_pad, "n": n}
+            row["ms"], row["spread_ms"] = time_ms(torch, lambda: G.muxq_gemm(
+                qk, mw.w_int, mw.block_scale, sk, mw.sw, bk=mw.bk), flush)
+            row["plain_ms"] = time_ms(torch, lambda: G.muxq_gemm_plain(
+                qk, mw.w_int, mw.block_scale, sk, mw.sw, mw.bk), flush,
+                iters=5)[0]
+            row["int_mm_ms"] = maybe_time(
+                torch, lambda: torch._int_mm(xq_pad, mw.w_int), flush)
+            row["bound_ms"], row["bound_by"] = bound(
+                m * k_pad + k_pad * n + 4 * (k_pad // mw.bk + m + n)
+                + 4 * m * n, 2 * m * n * k_pad, INT8_OPS_S)
+            qrow = {"kernel": "rowwise_quantize", "model": arch, "site": site,
+                    "m": m, "k": k, "k_pad": k_pad}
+            qrow["ms"], qrow["spread_ms"] = time_ms(
+                torch, lambda: RQ.rowwise_quantize(
+                    x, 8, gather_idx=mw.gather_idx, in_scale=mw.in_scale),
+                flush)
+            qrow["plain_ms"] = time_ms(torch, lambda: RQ.rowwise_quantize_plain(
+                x, 8, mw.gather_idx, mw.in_scale), flush, iters=5)[0]
+            qrow["bound_ms"], qrow["bound_by"] = bound(
+                4 * m * k + m * k_pad + 4 * m + 8 * k_pad, m * k_pad,
+                F32_FLOPS_S)
+            timings += [row, qrow]
+            print(f"time {arch} {site} M {m} (K {k}, K_pad {k_pad}, N {n}; "
+                  f"bit-equal): muxq_gemm {row['ms']:.4f} ms (spread "
+                  f"{row['spread_ms'][0]:.4f}-{row['spread_ms'][1]:.4f}; plain "
+                  f"{row['plain_ms']:.4f}), torch._int_mm {row['int_mm_ms']} "
+                  f"ms (M padded to {max(m, INT_MM_ROWS)}), bound "
+                  f"{row['bound_ms']:.5f} ms ({row['bound_by']}); "
+                  f"rowwise_quantize {qrow['ms']:.4f} ms (plain "
+                  f"{qrow['plain_ms']:.4f}), bound {qrow['bound_ms']:.6f} ms  "
+                  f"[{card}]", flush=True)
+            del buf, mw, x, qk, sk, qp, sp, yk, yp, xq_pad
+        secs_phase = time.perf_counter() - t0
+        rep[arch] = {
+            "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+            "d_model": cfg.d_model, "params_g": n_par / 1e9,
+            "artifact_s": t_art, "sites": len(art.kernel_buffers),
+            "sites_by_kind": kinds, "sites_with_2e_run": runs_2e,
+            "decode_vs_forward_rel": gap_a, "fused_vs_plain_logit_rel": gap_b,
+            "site_calls_equal": n_calls, "stream": stream_k.tolist(),
+            "serve_s": secs, "serve_plain_s": secs_p,
+            "prefill_launches": got_pre, "decode_step_launches": want_step,
+            "launches": total, "peak_gib": peak, "held_before_gib": held_gib,
+            "phase_s": secs_phase}
+        print(f"{arch} ({fam}; {cfg.n_layers} layers"
+              + (f" + {cfg.n_enc_layers} encoder layers" if cfg.n_enc_layers
+                 else "") + f", d {cfg.d_model}, full width and depth, "
+              f"{n_par / 1e9:.3f} G f32 parameters): artifact of "
+              f"{len(art.kernel_buffers)} fused sites {kinds} ({runs_2e} with "
+              f"a 2^e run) in {t_art:.1f} s; (a) fp decode after a "
+              f"{FAMILY_PROMPT}-token prefill within {gap_a:.3g} of the "
+              f"forward's logit scale; (b) prefill {b} x {s} + "
+              f"{FAMILY_DECODE} serve steps {secs:.3f} s (plain versions "
+              f"{secs_p:.3f} s), the same stream, codes and scales equal at "
+              f"all {n_calls} site calls, logits {gap_b:.3g} apart; (c) the "
+              f"prefill launches {got_pre}, every decode step {want_step}; "
+              f"peak device memory {peak:.2f} GiB over {held_gib:.2f} held; "
+              f"phase {secs_phase:.1f} s  [{card}]", flush=True)
+        del params, art, pre, serve, pre_fp, calib, prompts, fa
+        torch.cuda.empty_cache()
+        phases.done(f"serve {arch}")
     return rep, runs
 
 
@@ -2884,7 +3220,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.done("training")
 
-    # -- 18. result lines ---------------------------------------------------------
+    # -- 18. the SSM, hybrid and encoder-decoder families -----------------------
+    fam = {a: get_config(a) for a in FAMILY_ARCHS}
+    report["families"], fam_runs = families_phase(
+        torch, dev, fam, card, reset_counts, read_counts, flush, record,
+        report["timings"], phases)
+    main_runs.update(fam_runs)
+
+    # -- 19. result lines ---------------------------------------------------------
     pa_src = ("src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:161")
     sources = {"rowwise_quantize": ("src/repro_torch/csrc/rowwise_quantize.cu",

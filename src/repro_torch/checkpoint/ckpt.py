@@ -155,13 +155,14 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 def _specs(tree, prefix: str = "") -> Dict[str, Tuple[tuple, torch.dtype]]:
     """'/'-joined key -> (shape, dtype) of each leaf of a port-layout tree
-    as the reference stores it: a ``"layers"`` list stacks on [L, ...]."""
+    as the reference stores it: a list of per-layer dicts (``layers``,
+    ``enc_layers``) stacks on [L, ...]."""
     if not isinstance(tree, dict):
         return {prefix: (tuple(tree.shape), tree.dtype)}
     out: Dict[str, Tuple[tuple, torch.dtype]] = {}
     for key, val in tree.items():
         name = f"{prefix}/{key}" if prefix else str(key)
-        if key == "layers" and isinstance(val, list):
+        if isinstance(val, list):
             out.update({k: ((len(val), *shape), dt)
                         for k, (shape, dt) in _specs(val[0], name).items()})
         else:

@@ -7,7 +7,9 @@ a leading ``[L, ...]`` axis (``transformer._stacked_layers``, for
     {"embed": [V_pad, d], "ln_f": {...}, "layers": [layer_0, ..., layer_L-1]}
 
 with one dict of tensors per layer (the reference's per-layer subtree,
-unstacked).  Prequantized ``{"q", "s"}`` weight leaves unstack the same
+unstacked); an encoder-decoder's ``enc_layers`` unstack the same way,
+while the hybrid's ``shared`` block is one unstacked dict in both
+layouts.  Prequantized ``{"q", "s"}`` weight leaves unstack the same
 way.  :func:`to_reference_layout` is the inverse: what an artifact bundle
 and a checkpoint store, so the files the port writes are the reference's
 format.  The optimizer state (``{"mu", "nu", "step"}``, the moments
@@ -30,16 +32,25 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# the stacked per-layer roots -> the config field that counts them
+_STACKS = {"layers": "n_layers", "enc_layers": "n_enc_layers"}
+
+
 def from_jax_params(cfg, params_np, device="cuda") -> dict:
     """Reference params tree (numpy leaves, stacked layers) -> the port's
-    params (tensors on ``device``, a list of per-layer dicts)."""
+    params (tensors on ``device``, lists of per-layer dicts)."""
     out = {k: _map(v, lambda a: _to_tensor(a, device))
-           for k, v in params_np.items() if k != "layers"}
-    stacked = params_np["layers"]
-    n = _leading_dim(stacked)
-    if cfg is not None and n != cfg.n_layers:
-        raise ValueError(f"params stack {n} layers, config has {cfg.n_layers}")
-    out["layers"] = [_map(stacked, lambda a, i=i: _to_tensor(np.asarray(a)[i], device))
+           for k, v in params_np.items() if k not in _STACKS}
+    for root, field in _STACKS.items():
+        if root not in params_np:
+            continue
+        stacked = params_np[root]
+        n = _leading_dim(stacked)
+        if cfg is not None and n != getattr(cfg, field):
+            raise ValueError(f"params stack {n} {root}, config has "
+                             f"{getattr(cfg, field)}")
+        out[root] = [_map(stacked, lambda a, i=i: _to_tensor(np.asarray(a)[i],
+                                                           device))
                      for i in range(n)]
     return out
 
@@ -54,9 +65,8 @@ def params_to(params: dict, device="cuda") -> dict:
     """The port's params with every tensor moved to ``device``."""
     def move(t):
         return t.to(device) if isinstance(t, torch.Tensor) else t
-    out = {k: _map(v, move) for k, v in params.items() if k != "layers"}
-    out["layers"] = [_map(lp, move) for lp in params["layers"]]
-    return out
+    return {k: ([_map(lp, move) for lp in v] if isinstance(v, list)
+                else _map(v, move)) for k, v in params.items()}
 
 
 def as_port_params(cfg, params, device) -> dict:
@@ -80,17 +90,13 @@ def _stack(trees):
 
 
 def to_reference_layout(params: dict) -> dict:
-    """The port's params (tensors, a list of per-layer dicts, ``{"q", "s"}``
-    leaves included) -> the reference's tree: numpy leaves, every per-layer
-    leaf stacked on a leading [L, ...] axis.  A tree already stacked only
-    turns into numpy."""
-    out = {k: _map(v, _to_numpy) for k, v in params.items() if k != "layers"}
-    layers = params["layers"]
-    if isinstance(layers, dict):
-        out["layers"] = _map(layers, _to_numpy)
-    else:
-        out["layers"] = _stack([_map(lp, _to_numpy) for lp in layers])
-    return out
+    """The port's params (tensors, lists of per-layer dicts, ``{"q", "s"}``
+    leaves included) -> the reference's tree: numpy leaves, every
+    per-layer leaf stacked on a leading [L, ...] axis.  A tree already
+    stacked only turns into numpy."""
+    return {k: (_stack([_map(lp, _to_numpy) for lp in v])
+                if isinstance(v, list) else _map(v, _to_numpy))
+            for k, v in params.items()}
 
 
 def opt_state_to_reference_layout(state: dict) -> dict:

@@ -6,11 +6,16 @@ the serving step reads one byte a weight and never re-quantizes.  Packing
 follows the policy: each site packs at its resolved weight bits and
 granularity (fp sites keep their leaf), and smooth-method sites fold
 their per-channel divisor into the weight first (``Q(s*W)``), so the
-runtime applies only X/s.  The MoE expert leaves ``moe/wi`` and
-``moe/wo`` ([E, in, out]) pack per expert and out channel.  Embeddings,
-norms, biases, the router and the shared expert (its leaves sit under
-``moe/shared/``, as in the reference, which leaves them unpacked) stay as
-they are.
+runtime applies only X/s.  The eligible leaves are the matmul right-hand
+sides of every family: attention (``attn/wqkv|wo``), whisper's cross
+attention (``cross/wq|wkv|wo``), the MLP, the MoE experts (``moe/wi|wo``,
+[E, in, out], packed per expert and out channel) and the Mamba2
+projections (``ssm/in_zx|in_bcdt|out_proj``), in the decoder stack
+(``layers``, sites ``layer{i}/``), the encoder stack (``enc_layers``,
+``enc{i}/``) and the hybrid's one shared block (``shared``).  Embeddings,
+norms, biases, the router, the conv and SSD parameters and the shared
+expert (its leaves sit under ``moe/shared/``, as in the reference, which
+leaves them unpacked) stay as they are.
 """
 from __future__ import annotations
 
@@ -24,14 +29,21 @@ from repro_torch.core.muxq import SMOOTH_METHODS
 from repro_torch.core.policy import SitePolicy
 
 
-# weight-path suffix -> the ctx site base name it is consumed under (the
-# dense and MoE families' matmul right-hand sides, the leaves eligible for
-# int8)
+# weight-path suffix -> the ctx site base name it is consumed under
 _SITE_BY_SUFFIX = {
     "attn/wqkv": "attn_qkv", "attn/wo": "attn_out",
+    "cross/wq": "cross_q", "cross/wkv": "cross_kv", "cross/wo": "cross_out",
     "mlp/wi": "mlp_up", "mlp/wo": "mlp_down",
     "moe/wi": "moe_up", "moe/wo": "moe_down",
+    "ssm/in_zx": "ssm_in_zx", "ssm/in_bcdt": "ssm_in_bcdt",
+    "ssm/out_proj": "ssm_out",
 }
+
+# params root -> the eager site prefix of its i-th layer, in the
+# reference's order of leaves (sorted keys).  The hybrid's shared block is
+# one weight run at several places: no per-instance prefix, and no
+# per-instance smoothing factor can fold into it.
+_ROOTS = (("enc_layers", "enc{}/"), ("layers", "layer{}/"), ("shared", None))
 
 
 def site_for_path(pathstr: str) -> Optional[str]:
@@ -42,14 +54,15 @@ def site_for_path(pathstr: str) -> Optional[str]:
     return None
 
 
-def _pack_cfg(policy: SitePolicy, pathstr: str, site: str, n_layers: int):
-    """The pack-relevant config of one weight leaf of the layer stack.
+def _pack_cfg(policy: SitePolicy, pathstr: str, names):
+    """The pack-relevant config of one weight leaf, used at the eager
+    sites ``names`` (one a layer of a stack).
 
     The saved bundle stacks each leaf over the layers (the reference's
     layout), so the projection that decides its packing — fp-ness,
     smooth-ness, weight bits, weight granularity — must agree across every
     layer's eager site; a layer-targeted rule that splits it raises."""
-    cfgs = [policy.resolve(f"layer{i}/{site}") for i in range(n_layers)]
+    cfgs = [policy.resolve(nm) for nm in names]
     keys = {(c.method == "fp", c.method in SMOOTH_METHODS,
              c.weight_bits, c.weight_granularity) for c in cfgs}
     if len(keys) > 1:
@@ -84,45 +97,55 @@ def prequantize_params(cfg, params, weight_bits: int = 8, *,
                        smooth_factors: Optional[Dict[str, np.ndarray]] = None):
     """The port's params with eligible weight leaves replaced by
     ``{"q": int8 [in, out], "s": f32 [1, out]}`` (per_channel; [1, 1] per
-    tensor; a per-expert leaf [E, in, out] gets scales [E, 1, out]).  With ``policy``, each site packs at its resolved weight bits
-    and granularity (fp sites pass through untouched), and
-    ``smooth_factors`` ({eager site: [in_ch] divisor}) fold into
-    smooth-method sites before quantizing."""
-    layers = params["layers"]
-    n = len(layers)
-    new_layers = [dict(lp) for lp in layers]
-    for mod in sorted({m for lp in layers for m in lp}):
-        sub = layers[0].get(mod)
-        if not isinstance(sub, dict):
+    tensor; a per-expert leaf [E, in, out] gets scales [E, 1, out]).
+    With ``policy``, each site packs at its resolved weight bits and
+    granularity (fp sites pass through untouched), and ``smooth_factors``
+    ({eager site: [in_ch] divisor}) fold into smooth-method sites before
+    quantizing; the shared block of the hybrid cannot take them and
+    raises."""
+    out = dict(params)
+    for root, fmt in _ROOTS:
+        if root not in params:
             continue
-        for key in sub:
-            pathstr = f"layers/{mod}/{key}"
-            site = site_for_path(pathstr)
-            if site is None:
+        stacked = isinstance(params[root], list)
+        layers = params[root] if stacked else [params[root]]
+        new_layers = [dict(lp) for lp in layers]
+        for mod in sorted({m for lp in layers for m in lp}):
+            sub = layers[0].get(mod)
+            if not isinstance(sub, dict):
                 continue
-            bits, gran, fold = weight_bits, "per_channel", None
-            if policy is not None:
-                scfg = _pack_cfg(policy, pathstr, site, n)
-                if scfg.method == "fp":
+            for key in sorted(sub):
+                pathstr = f"{root}/{mod}/{key}"
+                site = site_for_path(pathstr)
+                if site is None:
                     continue
-                bits, gran = scfg.weight_bits, scfg.weight_granularity
-                if scfg.method in SMOOTH_METHODS:
-                    fold = [(smooth_factors or {}).get(f"layer{i}/{site}")
-                            for i in range(n)]
-                    if any(f is None for f in fold):
-                        raise ValueError(
-                            f"weight leaf {pathstr!r}: method {scfg.method!r} "
-                            "needs per-layer smooth factors folded into the "
-                            "packed weight, but none cover this leaf — use "
-                            "prequantize=False for this policy")
-            for i, lp in enumerate(new_layers):
-                leaf = layers[i][mod][key]
-                if fold is not None:     # [.., in, out]: s over the rows
-                    s = torch.as_tensor(np.array(fold[i], np.float32),
-                                        device=leaf.device)
-                    leaf = (leaf * s[:, None]).to(leaf.dtype)
-                lp[mod] = {**lp[mod], key: _pack_leaf(leaf, bits, gran)}
-    return {**params, "layers": new_layers}
+                names = ([fmt.format(i) + site for i in range(len(layers))]
+                         if fmt else [site])
+                bits, gran, fold = weight_bits, "per_channel", None
+                if policy is not None:
+                    scfg = _pack_cfg(policy, pathstr, names)
+                    if scfg.method == "fp":
+                        continue
+                    bits, gran = scfg.weight_bits, scfg.weight_granularity
+                    if scfg.method in SMOOTH_METHODS:
+                        fold = [(smooth_factors or {}).get(nm) for nm in names]
+                        if fmt is None or any(f is None for f in fold):
+                            raise ValueError(
+                                f"weight leaf {pathstr!r}: method "
+                                f"{scfg.method!r} needs per-layer smooth "
+                                "factors folded into the packed weight, but "
+                                "none cover this leaf (shared/multi-instance "
+                                "weights cannot fold a per-instance factor) — "
+                                "use prequantize=False for this policy")
+                for i, lp in enumerate(new_layers):
+                    leaf = layers[i][mod][key]
+                    if fold is not None:     # [.., in, out]: s over the rows
+                        s = torch.as_tensor(np.array(fold[i], np.float32),
+                                            device=leaf.device)
+                        leaf = (leaf * s[:, None]).to(leaf.dtype)
+                    lp[mod] = {**lp[mod], key: _pack_leaf(leaf, bits, gran)}
+        out[root] = new_layers if stacked else new_layers[0]
+    return out
 
 
 def prequant_bytes(tree) -> int:

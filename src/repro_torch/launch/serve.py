@@ -7,8 +7,10 @@ prompts through the continuous-batching engine and report serving metrics
 
 The flags are the reference launcher's (``repro.launch.serve``) plus
 ``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions).
-``--arch`` takes gpt2-small or any of ``configs.list_archs()`` (the dense
-and MoE decoders), at its reduced size.
+``--arch`` takes gpt2-small or any of ``configs.list_archs()`` at its
+reduced size; the engine serves the dense and MoE decoders and refuses
+the SSM, hybrid and encoder-decoder archs, as the reference's does (they
+serve through ``launch/steps.py``).
 ``--json-out PATH`` dumps the final metrics report, the registry snapshot
 and (with ``--obs``) the quality snapshot as JSON.  ``--trace-out PATH``
 records the run's request/step lifecycle and writes a Chrome-trace /

@@ -8,6 +8,13 @@ through ``kernels.dispatch`` onto ``rowwise_quantize`` + ``muxq_gemm``,
 on the card or, for CPU tensors, their plain versions.  Batches are dicts
 of tensors on ``device``.
 
+The steps run every family.  The prefill builds the cache the
+reference builds: a KV cache for the dense, MoE and encoder-decoder
+families (the latter's prefill adds the encoder's ``memory``), the
+stacked conv and SSD states for the SSM family, and both for the hybrid
+(one KV cache a use of its shared block).  ``frames`` and
+``patches`` in a batch pass to the forward.
+
 The reference's ``scan=`` and ``qparams=`` have no counterpart here (no
 scan; per-layer quantization data lives in the ctx), and nothing is
 jitted: each step runs eagerly.
@@ -23,14 +30,29 @@ from repro_torch.core.muxq import QuantConfig
 from repro_torch.models import transformer as T
 from repro_torch.models.attention import init_cache
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.ssm import init_ssm_state
 from repro_torch.optim import adamw
 from repro_torch.serve.kvcache import init_int8_cache
 
 
-def _dense_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"the port's steps run the dense and MoE families, "
-                         f"not {cfg.family}")
+def _extra(batch) -> Optional[dict]:
+    return {k: batch[k] for k in ("patches", "frames") if k in batch} or None
+
+
+def _prefill_cache(cfg: ModelConfig, b: int, s_max: int, kv_dtype,
+                   device) -> dict:
+    """The empty cache a family's prefill fills (``pos`` 0)."""
+    cache = {}
+    if cfg.family in ("ssm", "hybrid"):
+        cache.update(init_ssm_state(cfg, b, cfg.n_layers, device=device))
+    if cfg.family != "ssm":
+        if kv_dtype == torch.int8:
+            cache.update(init_int8_cache(cfg, b, s_max, device=device))
+        else:
+            cache.update(init_cache(cfg, b, s_max, dtype=kv_dtype,
+                                    device=device))
+    cache["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+    return cache
 
 
 def make_train_step(cfg: ModelConfig,
@@ -41,7 +63,6 @@ def make_train_step(cfg: ModelConfig,
     step.  Metrics: loss, ce, aux, lr, grad_norm (0-d tensors).
     ``cast_bf16`` runs the forward on bf16 copies of the f32 params (the
     gradients flow back through the cast to the f32 masters)."""
-    _dense_family(cfg)
     acfg = acfg or adamw.AdamWConfig()
     ctx = as_ctx(quant, device)
 
@@ -69,7 +90,6 @@ def make_eval_step(cfg: ModelConfig, quant=None, device="cuda"):
     """``eval_step(params, batch) -> ce``: ``lm_loss``'s cross-entropy
     (with its default ``train=True`` dispatch, as the reference's), no
     autograd."""
-    _dense_family(cfg)
     ctx = as_ctx(quant, device)
 
     def eval_step(params, batch):
@@ -83,24 +103,19 @@ def make_eval_step(cfg: ModelConfig, quant=None, device="cuda"):
 def make_prefill_step(cfg: ModelConfig, seq_len: int, quant=None,
                       kv_dtype=torch.bfloat16, device="cuda"):
     """Full-sequence prefill: ``prefill_step(params, batch) -> (first
-    sampled token [b] int32, the dense cache)``.  The cache holds
-    ``seq_len`` plus the patches; ``kv_dtype=torch.int8`` builds an int8
-    cache (``kvcache.init_int8_cache``), any float dtype an fp one."""
-    _dense_family(cfg)
+    sampled token [b] int32, the cache)``.  A KV cache holds ``seq_len``
+    plus the patches; ``kv_dtype=torch.int8`` builds an int8 one
+    (``kvcache.init_int8_cache``), any float dtype an fp one.  An
+    encoder-decoder's batch carries ``frames`` [b, n_frames, d]."""
     ctx = as_ctx(quant, device)
     s_max = seq_len + cfg.n_patches
 
     def prefill_step(params, batch):
         tokens = batch["tokens"]
-        b = tokens.shape[0]
-        extra = {"patches": batch["patches"]} if "patches" in batch else None
-        if kv_dtype == torch.int8:
-            cache = init_int8_cache(cfg, b, s_max, device=tokens.device)
-        else:
-            cache = init_cache(cfg, b, s_max, dtype=kv_dtype,
-                               device=tokens.device)
+        cache = _prefill_cache(cfg, tokens.shape[0], s_max, kv_dtype,
+                               tokens.device)
         with torch.no_grad():
-            out = T.forward(cfg, params, tokens, ctx, extra=extra,
+            out = T.forward(cfg, params, tokens, ctx, extra=_extra(batch),
                             cache=cache)
         next_tok = torch.argmax(out["logits"][:, -1, : cfg.vocab_size], -1)
         return next_tok.to(torch.int32), out["cache"]
@@ -111,7 +126,6 @@ def make_prefill_step(cfg: ModelConfig, seq_len: int, quant=None,
 def make_serve_step(cfg: ModelConfig, quant=None, device="cuda"):
     """One-token decode against the dense cache: ``serve_step(params,
     {"tokens": [b, 1], "cache": ...}) -> (next token [b] int32, cache)``."""
-    _dense_family(cfg)
     ctx = as_ctx(quant, device)
 
     def serve_step(params, batch):

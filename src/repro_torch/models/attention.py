@@ -1,7 +1,8 @@
-"""Attention of the dense decoder (counterpart of
-``repro/models/attention.py``): the full-sequence ``attention`` of the
-training, calibration and prefill forward, the one-token decode against a
-dense cache, and the three paged serving steps.
+"""Attention (counterpart of ``repro/models/attention.py``): the
+full-sequence ``attention`` of the training, calibration and prefill
+forward (causal, or bidirectional for an encoder), whisper's
+``cross_attention``, the one-token decode against a dense cache, and the
+three paged serving steps.
 
 The dense path (``sdpa`` with a ``causal_bias``) is the reference's op
 sequence; it also reports each layer's post-RoPE K/V to an optional
@@ -110,12 +111,14 @@ def causal_bias(sq: int, sk: int, window: int, window_flag: bool,
 
 def attention(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
               positions: torch.Tensor, *, window_flag: bool = False,
-              cache: Optional[dict] = None) -> torch.Tensor:
-    """Full-sequence causal attention (training, calibration, prefill).
-    x [b, s, d]; positions [b, s].  Reports the post-RoPE K/V to the KV
-    observer under the ctx's site prefix.  ``cache``: one layer's dense
-    cache arrays ([b, s_max, kvh, dh], int8 caches with their scales),
-    written in place at positions [0, s) through the cache's quantizer."""
+              cache: Optional[dict] = None, causal: bool = True
+              ) -> torch.Tensor:
+    """Full-sequence attention (training, calibration, prefill), causal
+    unless ``causal=False`` (the encoder).  x [b, s, d]; positions [b, s].
+    Reports the post-RoPE K/V to the KV observer under the ctx's site
+    prefix.  ``cache``: one layer's dense cache arrays ([b, s_max, kvh,
+    dh], int8 caches with their scales), written in place at positions
+    [0, s) through the cache's quantizer."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(cfg, p, ctx, x, positions)
     if _KV_OBSERVER is not None:
@@ -123,9 +126,27 @@ def attention(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
     if cache is not None:
         for n, val in kvq.from_cache(cache).quantize(k, v).items():
             cache[n][:, :s] = val.to(cache[n].dtype)
-    bias = causal_bias(s, s, cfg.window_size, window_flag, device=x.device)
+    bias = (causal_bias(s, s, cfg.window_size, window_flag, device=x.device)
+            if causal else None)
     o = sdpa(cfg, q, k, v, bias).reshape(b, s, cfg.n_heads * cfg.head_dim)
     return ctx("attn_out", o, p["wo"])
+
+
+def cross_attention(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
+                    memory: torch.Tensor) -> torch.Tensor:
+    """Whisper-style cross attention: queries from the decoder's x [b, s,
+    d], keys and values projected from the encoder's memory [b, sm, d]
+    (``cross_kv``, recomputed at every call, as the reference does); no
+    mask, no RoPE."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = ctx("cross_q", x, p["wq"]).reshape(b, s, h, dh)
+    kvm = ctx("cross_kv", memory, p["wkv"])
+    sm = memory.shape[1]
+    k = kvm[..., : kv * dh].reshape(b, sm, kv, dh)
+    v = kvm[..., kv * dh:].reshape(b, sm, kv, dh)
+    o = sdpa(cfg, q, k, v, None).reshape(b, s, h * dh)
+    return ctx("cross_out", o, p["wo"])
 
 
 def attention_decode(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
@@ -156,15 +177,22 @@ def attention_decode(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
 
 
 def n_attn_layers(cfg: ModelConfig) -> int:
-    """Number of KV-cache-bearing attention layers in the stack."""
+    """Number of KV-cache-bearing attention invocations in the stack (the
+    hybrid's shared block: one a use, each with its own cache)."""
+    if cfg.shared_attn_every:
+        k = cfg.shared_attn_every
+        return sum(1 for i in range(cfg.n_layers) if i % k == k - 1)
     return sum(1 for b in cfg.blocks if b in ("attn", "local", "global", "moe"))
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               dtype=torch.bfloat16, device="cuda") -> dict:
-    """Zero dense KV cache, stacked [L, b, s_max, kvh, dh], and ``pos`` 0
-    (a 0-d int32 tensor)."""
-    shape = (n_attn_layers(cfg), batch, s_max, cfg.n_kv_heads, cfg.head_dim)
+               dtype=torch.bfloat16, device="cuda",
+               layers: Optional[int] = None) -> dict:
+    """Zero dense KV cache, stacked [L, b, s_max, kvh, dh] (L =
+    ``layers``, else :func:`n_attn_layers`), and ``pos`` 0 (a 0-d int32
+    tensor)."""
+    n_attn = layers if layers is not None else n_attn_layers(cfg)
+    shape = (n_attn, batch, s_max, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.zeros((), dtype=torch.int32, device=device)}

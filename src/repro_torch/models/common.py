@@ -2,10 +2,9 @@
 softcap, cross-entropy.
 
 Counterpart of ``repro/models/common.py``.  ``ModelConfig`` is the
-reference's frozen dataclass with the fields of the families the port
-serves, dense and MoE (the SSM, hybrid and encoder-decoder fields join
-with those families); ``compute_dtype`` maps the dtype name to a
-``torch.dtype``.
+reference's frozen dataclass with the fields of all five families
+(dense, MoE, SSM, hybrid, encoder-decoder); ``compute_dtype`` maps the
+dtype name to a ``torch.dtype``.
 """
 from __future__ import annotations
 
@@ -45,7 +44,17 @@ class ModelConfig:
     n_experts: int = 0
     top_k: int = 0
     shared_expert: bool = False                  # llama4-style shared expert
+    # ssm (mamba2)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    # zamba2-style shared attention block applied every k mamba blocks
+    shared_attn_every: int = 0
 
+    # enc-dec (whisper)
+    n_enc_layers: int = 0
+    n_audio_frames: int = 1500
     # vlm (internvl2) — patch embeds prepended to token embeds
     n_patches: int = 0
 
@@ -66,6 +75,14 @@ class ModelConfig:
         return pad_vocab(self.vocab_size)
 
     @property
+    def d_inner(self) -> int:                    # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
+    @property
     def compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
@@ -76,9 +93,16 @@ class ModelConfig:
         return tuple(pat[i % len(pat)] for i in range(self.n_layers))
 
     @property
+    def is_enc_dec(self) -> bool:
+        return self.n_enc_layers > 0
+
+    @property
     def family(self) -> str:
-        """dense | moe | ssm — the stack body the block kinds select (the
-        hybrid and encoder-decoder families join with their fields)."""
+        """dense | moe | ssm | hybrid | encdec — selects the stack body."""
+        if self.is_enc_dec:
+            return "encdec"
+        if self.shared_attn_every:
+            return "hybrid"
         kinds = set(self.blocks)
         if kinds == {"mamba"}:
             return "ssm"

@@ -48,14 +48,23 @@ PACK_TARGETS = ("both", "fused", "tree")
 # fallback path.
 SITE_WEIGHT_PATH = {
     "attn_qkv": ("attn", "wqkv"), "attn_out": ("attn", "wo"),
+    "cross_q": ("cross", "wq"), "cross_kv": ("cross", "wkv"),
+    "cross_out": ("cross", "wo"),
     "mlp_up": ("mlp", "wi"), "mlp_down": ("mlp", "wo"),
     "moe_up": ("moe", "wi"), "moe_down": ("moe", "wo"),
+    "ssm_in_zx": ("ssm", "in_zx"), "ssm_in_bcdt": ("ssm", "in_bcdt"),
+    "ssm_out": ("ssm", "out_proj"),
 }
 _SITE_WEIGHT_FALLBACK = {
     "mlp_up": ("moe", "shared", "wi"), "mlp_down": ("moe", "shared", "wo"),
 }
 
-_SITE_RE = re.compile(r"^(layer)(\d+)/(.+)$")
+_SITE_RE = re.compile(r"^(layer|enc|shared)(\d+)/(.+)$")
+
+# eager site prefix kind -> the params root holding its layers: a list of
+# per-layer dicts, or (the hybrid's shared block) one dict that every
+# ``shared{j}/`` instance runs
+_ROOT_OF = {"layer": "layers", "enc": "enc_layers", "shared": "shared"}
 
 
 def split_site(site: str):
@@ -66,7 +75,16 @@ def split_site(site: str):
     return m.group(1), int(m.group(2)), m.group(3)
 
 
-def _site_leaf(layer: dict, base: str):
+def _layer_of(params, kind: str, idx: int) -> Optional[dict]:
+    """The per-layer params an eager site of ``kind``/``idx`` runs on (the
+    shared block for every ``shared{j}/``), or None."""
+    root = params.get(_ROOT_OF.get(kind))
+    if isinstance(root, list):
+        return root[idx] if idx < len(root) else None
+    return root
+
+
+def _site_leaf(layer: Optional[dict], base: str):
     """(path, leaf) of the weight an eager site base consumes in one
     layer's params ([in_ch, out]; [E, in_ch, out] at an expert site), or
     None where the layer has no such leaf."""
@@ -94,9 +112,9 @@ def _site_weight(params, site: str) -> Optional[torch.Tensor]:
     params consumes (an expert site's [E, in_ch, out] with the experts
     folded into the out dim), or None when the site has no raw leaf."""
     kind, idx, base = split_site(site)
-    if kind != "layer" or idx >= len(params["layers"]):
+    if kind is None:
         return None
-    found = _site_leaf(params["layers"][idx], base)
+    found = _site_leaf(_layer_of(params, kind, idx), base)
     if found is None or _is_prequant(found[1]):
         return None
     w = found[1]
@@ -241,22 +259,30 @@ def apply_pack_target(artifact: QuantArtifact, pack_target: str) -> QuantArtifac
         return dataclasses.replace(artifact, meta=meta)
     if isinstance(params["layers"], dict):      # loaded from a bundle
         params = from_jax_params(None, params, "cpu")
-    layers = list(params["layers"])
-    for base in SITE_WEIGHT_PATH:
-        if not all(f"layer{i}/{base}" in artifact.kernel_buffers
-                   for i in range(len(layers))):
-            continue                    # partial fused coverage: keep the copy
-        found = [_site_leaf(lp, base) for lp in layers]
-        if not all(f is not None and _is_prequant(f[1]) for f in found):
-            continue                    # not packed (fp site, shared expert)
-        for i, (path, leaf) in enumerate(found):
-            stub = {"q": torch.zeros((1,) * leaf["q"].ndim, dtype=torch.int8,
-                                     device=leaf["q"].device),
-                    "s": torch.ones((1,) * leaf["s"].ndim, dtype=torch.float32,
-                                    device=leaf["s"].device)}
-            layers[i] = _with_leaf(layers[i], path, stub)
-    return dataclasses.replace(artifact, params={**params, "layers": layers},
-                               meta=meta)
+    params = dict(params)
+    # the stacks only: the hybrid's shared block keeps its copy, as in the
+    # reference (its instance count is not the leaf's)
+    for root, kind in (("layers", "layer"), ("enc_layers", "enc")):
+        if root not in params:
+            continue
+        layers = list(params[root])
+        for base in SITE_WEIGHT_PATH:
+            if not all(f"{kind}{i}/{base}" in artifact.kernel_buffers
+                       for i in range(len(layers))):
+                continue                # partial fused coverage: keep the copy
+            found = [_site_leaf(lp, base) for lp in layers]
+            if not all(f is not None and _is_prequant(f[1]) for f in found):
+                continue                # not packed (fp site, shared expert)
+            for i, (path, leaf) in enumerate(found):
+                stub = {"q": torch.zeros((1,) * leaf["q"].ndim,
+                                         dtype=torch.int8,
+                                         device=leaf["q"].device),
+                        "s": torch.ones((1,) * leaf["s"].ndim,
+                                        dtype=torch.float32,
+                                        device=leaf["s"].device)}
+                layers[i] = _with_leaf(layers[i], path, stub)
+        params[root] = layers
+    return dataclasses.replace(artifact, params=params, meta=meta)
 
 
 # ---------------------------------------------------------------------------
@@ -306,16 +332,24 @@ def _stack_qparams(cfg, masks: Dict[str, np.ndarray],
 
 def _fused_sites(cfg, params, policy: SitePolicy):
     """(eager site, resolved cfg, weight leaf) for every site of the port's
-    params whose policy resolves to the fused backend."""
-    for i in range(cfg.n_layers):
+    params whose policy resolves to the fused backend, stack by stack:
+    the decoder's ``layer{i}/``, the encoder's ``enc{i}/`` and the
+    hybrid's ``shared{j}/``, one buffer a use of the shared block (each
+    with that use's mask)."""
+    from repro_torch.models.attention import n_attn_layers
+
+    stacks = (("layer", cfg.n_layers), ("enc", cfg.n_enc_layers),
+              ("shared", n_attn_layers(cfg) if cfg.shared_attn_every else 0))
+    for kind, n in stacks:
         for base in SITE_WEIGHT_PATH:
-            found = _site_leaf(params["layers"][i], base)
-            if found is None:
-                continue
-            site = f"layer{i}/{base}"
-            scfg = policy.resolve(site)
-            if scfg.method != "fp" and dispatch.site_backend(scfg) == "fused":
-                yield site, scfg, found[1]
+            for i in range(n):
+                found = _site_leaf(_layer_of(params, kind, i), base)
+                if found is None:
+                    continue
+                site = f"{kind}{i}/{base}"
+                scfg = policy.resolve(site)
+                if scfg.method != "fp" and dispatch.site_backend(scfg) == "fused":
+                    yield site, scfg, found[1]
 
 
 def pack_kernel_buffers(cfg, params, policy, masks: Dict[str, np.ndarray],
@@ -348,19 +382,25 @@ def pack_kernel_buffers(cfg, params, policy, masks: Dict[str, np.ndarray],
     return buffers
 
 
-def calibrate_model(cfg, params, batches: Iterable, device="cuda"
+def calibrate_model(cfg, params, batches: Iterable, device="cuda",
+                    forward=None
                     ) -> Tuple[CalibrationStats, Optional[Dict[str, np.ndarray]]]:
-    """Eager calibration pass over ``batches`` ({"tokens": [b, s]} each):
-    returns (matmul-site ``CalibrationStats``, ``kv_calib`` section or
-    None).  The same forwards feed both: the ``CollectCtx`` sees every
-    matmul input, the KV observer every layer's post-RoPE K/V."""
+    """Eager calibration pass over ``batches``: returns (matmul-site
+    ``CalibrationStats``, ``kv_calib`` section or None).  The same
+    forwards feed both: the ``CollectCtx`` sees every matmul input, the
+    KV observer every attention's post-RoPE K/V.  ``forward(params,
+    batch, ctx)`` runs one batch; the default, as the reference's, runs
+    ``transformer.forward`` on ``batch["tokens"]`` alone, so an
+    encoder-decoder (whose forward needs frames) must pass its own."""
     from repro_torch.models import attention as A
     from repro_torch.models import transformer as T
     from repro_torch.serve import kvq
 
-    def forward(p, batch, ctx):
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=device)
-        return T.forward(cfg, p, tokens, ctx)
+    if forward is None:
+        def forward(p, batch, ctx):
+            tokens = torch.as_tensor(np.asarray(batch["tokens"]),
+                                     device=device)
+            return T.forward(cfg, p, tokens, ctx)
 
     collector = kvq.KVCalibCollector()
     A.set_kv_observer(collector)
@@ -373,14 +413,16 @@ def calibrate_model(cfg, params, batches: Iterable, device="cuda"
 
 def quantize_model(cfg, params, calib: Union[None, CalibrationStats, Iterable],
                    policy: Union[QuantConfig, SitePolicy], *,
-                   prequantize: bool = True, pack_target: str = "both",
+                   forward=None, prequantize: bool = True,
+                   pack_target: str = "both",
                    device="cuda") -> QuantArtifact:
     """calibrate -> plan -> prequantize -> pack, in one call.
 
     ``params``: the port's (or the reference's stacked) tree; it runs on
     ``device``.  ``calib``: batches ({"tokens": [b, s]}) that
-    :func:`calibrate_model` runs through the dense ``forward`` (matmul
-    stats and the int4 KV pages' ``kv_calib``), a precollected
+    :func:`calibrate_model` runs through ``forward`` (default: the
+    model's ``forward`` on the tokens; matmul stats and the int4 KV
+    pages' ``kv_calib``), a precollected
     :class:`CalibrationStats` (no forwards, no ``kv_calib``), or None when
     the policy needs no calibration.  ``prequantize=False`` skips weight
     packing (the paper's fake-quant evaluation protocol).  ``pack_target``:
@@ -392,7 +434,8 @@ def quantize_model(cfg, params, calib: Union[None, CalibrationStats, Iterable],
     if isinstance(calib, CalibrationStats):
         stats = calib
     elif calib is not None:
-        stats, kv_calib = calibrate_model(cfg, params, calib, device)
+        stats, kv_calib = calibrate_model(cfg, params, calib, device,
+                                          forward)
     if stats is None and policy.needs_calibration():
         raise ValueError("policy needs static masks / smoothing factors but "
                          "no calibration data or stats were given")

@@ -436,3 +436,59 @@ def test_cuda_flash_attention_ragged_tiles(cuda, dtype, sq, sk, dh, kw):
     rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
     assert ok.dtype == dtype and torch.isfinite(ok).all()
     torch.testing.assert_close(ok.float(), op.float(), rtol=rtol, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b", "whisper-tiny"])
+def test_cuda_families_fused_serve_matches_plain(cuda, arch):
+    """The SSM, hybrid and encoder-decoder families (reduced) served from
+    a fused MUXQ artifact: prefill + 4 serve steps through the kernels
+    give the plain versions' stream, with one quantize and one GEMM a
+    site a step (the ragged N 40 of ``ssm_in_bcdt`` included)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import SitePolicy
+    from repro_torch.launch.steps import (MUXQ_FUSED_SERVE, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models import transformer as T
+    from repro_torch.quantize import quantize_model
+
+    cfg = get_config(arch, reduced=True)
+    params = T.init_params(cfg, seed=0, device=cuda)
+    hot = 19.0 if cfg.norm == "rmsnorm" else 20.0      # x20 either way
+    for lp in params["layers"]:
+        lp["ln1"]["gain"][[3, 17, 40]] = hot
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 12),
+                                     generator=g).to(cuda)}
+    if cfg.is_enc_dec:
+        batch["frames"] = torch.randn(2, cfg.n_audio_frames, cfg.d_model,
+                                      generator=g).to(cuda)
+
+    def forward(p, b, ctx):
+        extra = {"frames": b["frames"]} if "frames" in b else None
+        return T.forward(cfg, p, b["tokens"], ctx, extra=extra)
+    art = quantize_model(cfg, params, [batch],
+                         SitePolicy.uniform(MUXQ_FUSED_SERVE),
+                         forward=forward, device=cuda)
+    pre = make_prefill_step(cfg, 16, quant=art, kv_dtype=torch.float32,
+                            device=cuda)
+    serve = make_serve_step(cfg, quant=art, device=cuda)
+    sites = sum(1 for s in art.kernel_buffers if not s.startswith("enc"))
+
+    def stream(impl):
+        prev = dispatch.set_fused_impl(impl)
+        try:
+            tok, cache = pre(params, batch)
+            out = [tok]
+            for _ in range(4):
+                RQ.LAUNCHES = G.LAUNCHES = 0
+                tok, cache = serve(params, {"tokens": tok[:, None],
+                                            "cache": cache})
+                out.append(tok)
+                if impl == "auto":
+                    torch.cuda.synchronize()
+                    assert RQ.LAUNCHES == G.LAUNCHES == sites
+        finally:
+            dispatch.set_fused_impl(prev)
+        return torch.stack(out, 1)
+    assert torch.equal(stream("auto"), stream("ref"))

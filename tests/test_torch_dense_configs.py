@@ -101,10 +101,12 @@ def test_registry_lists_the_reference_order():
     archs = list_archs()
     assert archs == [a for a in jlist_archs() if a in archs]
     assert set(ARCHS) | {"qwen2-0.5b", "llama4-scout-17b-a16e",
-                         "dbrx-132b"} == set(archs)
+                         "dbrx-132b", "mamba2-370m", "zamba2-1.2b",
+                         "whisper-tiny"} == set(archs)
     assert "gpt2-small" not in archs and get_config("gpt2-small").n_layers == 12
+    assert archs == jlist_archs()       # the SSM, hybrid, enc-dec archs too
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("mamba2-370m")
+        get_config("mamba2-371m")
 
 
 # ---------------------------------------------------------------------------
@@ -139,10 +141,19 @@ def test_init_params_tree_matches_reference(arch):
 
 
 def test_init_params_refuses_other_families():
+    """No family is refused any more: a dense config whose blocks are all
+    ``mamba`` is the SSM family, and its tree (``ln1`` + ``ssm`` layers)
+    has the reference's names and shapes; the hybrid's and the
+    encoder-decoder's are held in ``test_torch_families.py``."""
     cfg = get_config("qwen2-0.5b", reduced=True).replace(
-        block_pattern=("mamba",))
-    with pytest.raises(NotImplementedError, match="dense"):
-        T.init_params(cfg, device="cpu")
+        block_pattern=("mamba",), ssm_state=16, ssm_head_dim=16)
+    jcfg = jget_config("qwen2-0.5b", reduced=True).replace(
+        block_pattern=("mamba",), ssm_state=16, ssm_head_dim=16)
+    assert cfg.family == jcfg.family == "ssm"
+    tp = T.init_params(cfg, device="cpu")
+    jp = jax.tree.map(np.asarray, JT.init_params(jcfg, jax.random.PRNGKey(0)))
+    assert _shapes(to_reference_layout(tp)) == _shapes(jp)
+    assert set(tp["layers"][0]) == {"ln1", "ssm"}
 
 
 def test_convert_round_trips_every_leaf(model):

@@ -78,6 +78,19 @@ def test_emulated_muxq_gemm_bit_equal(emu, m, k, n):
         _held(*_gemm(m + k + n, m, k, n))
 
 
+@pytest.mark.parametrize("m,k,n,bk", [
+    (4, 1536, 288, 512),   # mamba2-370m ssm_in_bcdt: N = 2 x 128 + 32, ragged
+    (4, 2560, 192, 512),   # zamba2-1.2b ssm_in_bcdt: N = 2 x 64 + 64
+    (4, 768, 1152, 384),   # whisper-tiny attn_qkv: K 384 is one K-block
+])
+def test_emulated_muxq_gemm_at_the_new_families_sites(emu, m, k, n, bk):
+    """The SSM, hybrid and encoder-decoder families' odd widths (K_pad with
+    one 8-channel outlier run): bit-equal, the ragged N's last block's
+    scale reads clamped and its stores guarded."""
+    with emu.patch(block_order="shuffle:3"):
+        _held(*_gemm(m + k + n, m, k, n, bk=bk), bk=bk)
+
+
 @pytest.mark.parametrize("m", [1, 4, 20, 64, 128, 130])
 @pytest.mark.parametrize("k,n", [(1536, 768), (1536, 2304), (1536, 3072),
                                  (3584, 768), (1536, 1152), (1536, 896),

@@ -437,8 +437,17 @@ def test_prefill_and_serve_steps():
                                          device="cpu")(p, {"tokens": toks})
     assert cache8["k"].dtype == torch.int8 and "k_scale" in cache8
     assert kvcache.cache_bytes(cache8) < kvcache.cache_bytes(cache)
-    with pytest.raises(ValueError, match="dense and MoE"):
-        S.make_train_step(cfg.replace(block_pattern=("mamba",)), device="cpu")
+    # the step builders take the SSM, hybrid and enc-dec families too (held
+    # against the reference in test_torch_families.py): one train step each
+    for arch in ("mamba2-370m", "zamba2-1.2b", "whisper-tiny"):
+        c = get_config(arch, reduced=True)
+        p = T.init_params(c, seed=3, device="cpu")
+        batch = {k: torch.as_tensor(v) for k, v in _batch(c, 2, 8).items()}
+        if c.is_enc_dec:
+            batch["frames"] = torch.randn(2, c.n_audio_frames, c.d_model)
+        new, state, m = S.make_train_step(c, device="cpu")(
+            p, A.init_state(p), batch)
+        assert np.isfinite(float(m["loss"])) and int(state["step"]) == 1
 
 
 def test_int8_cache_contract_and_bytes():

@@ -175,6 +175,8 @@ def smoke() -> int:
             ('get_config("llama4-scout-17b-a16e")',
              'get_config("llama4-scout-17b-a16e", reduced=True)'),
             ('get_config("dbrx-132b")', 'get_config("dbrx-132b", reduced=True)'),
+            ("fam = {a: get_config(a) for a in FAMILY_ARCHS}",
+             "fam = {a: get_config(a, reduced=True) for a in FAMILY_ARCHS}"),
             ("WINDOW_SPAN = 600 ", "WINDOW_SPAN = 24 "),
             ("fb, fs, fh, fkv, fdh = 1, 2048, 14, 2, 64",
              "fb, fs, fh, fkv, fdh = 1, 160, 14, 2, 64"),
