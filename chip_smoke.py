@@ -173,7 +173,25 @@ its seconds):
    at every site shape at M 4 and the prefill M (whisper's encoder sites
    and ``cross_kv`` at the memory's M 6000) beside ``torch._int_mm``;
    each model's seconds and peak device memory.
-19. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
+19. Distributed training (``dist_phase``), every rank a spawned gloo
+   process on this one card, gpt2-small at full width in f32 from the
+   seed-0 weights on phase 17's batches (8 x 256) and AdamW: (a) 3
+   sharded steps (``parallel/spmd.py``: params and AdamW moments stored
+   sharded by ``param_specs``) at mesh (data 2, model 1) and (2, 2)
+   against 3 single-device steps on the same card: loss and grad_norm of
+   every step within DIST_RTOL, every rank's param shards within
+   DIST_PARAM_ATOL of the single-device params, each rank's bytes of
+   params + mu + nu beside the global bytes, the step's host seconds; (b)
+   one step's real gradients at dp 2 through ``tree_ef_compressed_psum``:
+   one-shot error under EF_SHOT_RTOL, the residual under max |g| over 20
+   repeats; (c) the 12 blocks as a 4-stage GPipe schedule, 4 micro-batches
+   of 2 x 256, within PIPE_RTOL of the unpipelined stack, with the
+   point-to-point buffers that gloo moves through host memory counted;
+   (d) ``allgather_matmul`` at gpt2's ``mlp_up`` ([32, 768] x [768, 3072]
+   split 4 ways) within MATMUL_RTOL of one matmul, ``hierarchical_psum`` on
+   a (pod 2, data 2) mesh exact; (e) a checkpoint saved at (2, 2) restored
+   bit-equal at (4, 1) and (1, 4).  No kernel runs on this path.
+20. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
 ``launches`` in the JSON line counts the launches of the full-width
@@ -282,6 +300,20 @@ FAMILY_DECODE_RTOL = 1e-3   # (a) fp decode vs the forward's last position,
                             # sums against the recurrence's, the attention
                             # over the cache against the full one, over the
                             # whole depth
+# phase 19: distributed training, gloo ranks sharing the card
+DIST_STEPS = 3          # (a) sharded steps a mesh, against as many
+                        # single-device steps (phase 17's batches and AdamW)
+DIST_RTOL = 1e-5        # (a) loss and grad_norm, relative: the same f32
+                        # terms summed in another order over the ranks
+DIST_PARAM_ATOL = 1e-4  # (a) params after 3 steps (lr at most 4.5e-4 then;
+                        # an element's Adam update is about lr)
+EF_SHOT_RTOL = 0.05     # (b) the int8 sum's one-shot error, of the exact
+                        # sum's abs-max (the reference test's bound)
+PIPE_MICRO = 4          # (c) micro-batches of the GPipe schedule
+PIPE_RTOL = 1e-5        # (c) pipelined vs unpipelined, of the output's
+                        # abs-max (the same shapes on the same card)
+MATMUL_RTOL = 1e-5      # (d) the ring matmul's row blocks vs one matmul,
+                        # of the output's abs-max
 
 
 def smi_line() -> str:
@@ -919,8 +951,6 @@ def families_phase(torch, dev, cfgs, card, reset_counts, read_counts, flush,
             def forward(p, batch, ctx):
                 return T.forward(cfg, p, batch["tokens"], ctx,
                                  extra=extra_of(batch))
-        else:                # the default forward takes host token arrays
-            calib = [{"tokens": c_["tokens"].cpu().numpy()} for c_ in calib]
         art = quantize_model(cfg, params, calib, policy, forward=forward,
                              device=dev)
         t_art = time.perf_counter() - t0
@@ -1152,6 +1182,358 @@ def families_phase(torch, dev, cfgs, card, reset_counts, read_counts, flush,
         phases.done(f"serve {arch}")
     return rep, runs
 
+
+def _dist_steps(torch, cfg, mesh, batches, acfg, dev_):
+    """3 sharded steps of gpt2 from the seed-0 weights on ``mesh``: the
+    metrics, each step's host seconds (synchronized), and the state."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import spmd
+    params = T.init_params(cfg, 0, device=dev_)
+    specs, dparams, state = spmd.init_sharded(cfg, params, mesh)
+    del params
+    step = spmd.make_sharded_train_step(cfg, mesh, specs, acfg, device=dev_)
+    metrics, secs = [], []
+    for batch in batches:
+        if dev_.type == "cuda":
+            torch.cuda.synchronize(dev_)
+        t0 = time.perf_counter()
+        dparams, state, m = step(dparams, state, batch)
+        if dev_.type == "cuda":
+            torch.cuda.synchronize(dev_)
+        secs.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return specs, dparams, state, metrics, secs
+
+
+def dist_rank(rank, world, src, device_name, job):
+    """Phase 19's rank ``rank`` of ``world`` (a spawned gloo process on
+    the one card).  Every world: 3 sharded gpt2 steps at its mesh, each
+    rank's shards held against the single-device step's params (handed
+    over by CUDA IPC).  World 2 also sums one step's real gradients
+    through the int8 error-feedback all-reduce; world 4 also saves and
+    restores the sharded checkpoint, runs the GPipe schedule, the ring
+    matmul and the hierarchical sum.  Returns the numbers; the parent
+    gates them."""
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core.context import FpCtx
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw, compress
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import global_stats as GS
+    from repro_torch.parallel import pipeline as PP
+    from repro_torch.parallel import sharding as SH
+    from repro_torch.parallel import spmd
+
+    dev_ = torch.device(device_name)
+    on_card = dev_.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False    # as in main()
+    cfg, batches, acfg = job["cfg"], job["batches"], job["acfg"]
+    out = {}
+    shape = (2, 1) if world == 2 else (2, 2)
+    mesh = M.make_host_mesh(*shape, device=device_name)
+    coord = SH.coordinate(mesh)
+
+    if world == 2:   # (b) one step's real gradients, compressed at dp 2
+        params = T.init_params(cfg, 0, device=dev_)
+        local = {k: SH.local_shard(torch.as_tensor(v, device=dev_),
+                                   SH.batch_specs(mesh, batches[0])[k], mesh)
+                 for k, v in batches[0].items()}
+        dp_group = C.subgroup(mesh, ("data",))
+        with GS.data_parallel(dp_group):
+            _, _, grads = loss_and_grads(cfg, params, local, FpCtx())
+        del params
+        exact = adamw.tree_map(
+            lambda g: C.all_reduce(g.clone(), "sum", dp_group), grads)
+        err = compress.init_error_state(grads)
+        tot, err = compress.tree_ef_compressed_psum(grads, err, dp_group)
+        rel = max(float((t - e).abs().max() / e.abs().max().clamp_min(1e-30))
+                  for t, e in zip(adamw.tree_leaves(tot),
+                                  adamw.tree_leaves(exact)))
+        g_max = [float(g.abs().max()) for g in adamw.tree_leaves(grads)]
+        worst = 0.0   # the residual's abs-max over |g|'s, 20 repeats
+        for _ in range(20):
+            tot, err = compress.tree_ef_compressed_psum(grads, err, dp_group)
+            worst = max(worst, max(float(e.abs().max()) / max(m_, 1e-30)
+                                   for e, m_ in zip(adamw.tree_leaves(err),
+                                                    g_max)))
+        out["ef"] = {"one_shot_rel": rel, "residual_over_g": worst,
+                     "leaves": len(g_max)}
+        del grads, exact, err, tot
+
+    # (a) 3 sharded steps against the single-device step's params
+    specs, dparams, state, metrics, secs = _dist_steps(
+        torch, cfg, mesh, batches, acfg, dev_)
+    gap = 0.0
+    for p_, ref, spec in zip(adamw.tree_leaves(dparams),
+                             adamw.tree_leaves(job["ref_params"]),
+                             spmd.spec_leaves(specs)):
+        want = SH.local_shard(ref, spec, mesh, coord)
+        loc = p_.to_local()
+        if loc.shape != want.shape:
+            raise AssertionError(f"rank {rank}: shard {tuple(loc.shape)} != "
+                                 f"{tuple(want.shape)}")
+        gap = max(gap, float((loc - want).abs().max()))
+    out.update(metrics=metrics, step_s=secs, param_gap=gap, coord=coord,
+               local_bytes=spmd.local_bytes([dparams, state["mu"],
+                                             state["nu"]]),
+               global_bytes=spmd.global_bytes([dparams, state["mu"],
+                                               state["nu"]]),
+               peak_gib=(torch.cuda.max_memory_allocated(dev_) / 2**30
+                         if on_card else None))
+    if world == 2:
+        return out
+
+    # (e) the checkpoint: saved at (2, 2), restored at (4, 1) and (1, 4)
+    full = SH.gather_tree(dparams)
+    mu = SH.gather_tree(state["mu"])
+    t0 = time.perf_counter()
+    ckpt.save(job["ckpt_dir"], 3, dparams, state)
+    out["ckpt_save_s"] = time.perf_counter() - t0
+    del dparams, state
+    template = T.init_params(cfg, 1, device=dev_)
+    equal = True
+    for shape2 in ((4, 1), (1, 4)):
+        m2 = M.make_host_mesh(*shape2, device=device_name)
+        sp2 = SH.param_specs(cfg, template, m2)
+        p2, o2, _ = ckpt.restore(job["ckpt_dir"], 3, template,
+                                 adamw.init_state(template), shardings=sp2,
+                                 opt_shardings={"mu": sp2, "nu": sp2},
+                                 mesh=m2)
+        for tree, whole in ((p2, full), (o2["mu"], mu)):
+            for d_, w_, s_ in zip(adamw.tree_leaves(tree),
+                                  adamw.tree_leaves(whole), spmd.spec_leaves(sp2)):
+                equal &= torch.equal(d_.to_local(),
+                                     SH.local_shard(w_, s_, m2))
+        del p2, o2
+    out["ckpt_equal"] = equal
+    del full, mu, template
+
+    # (c) the GPipe schedule: 12 blocks in 4 stages of 3, 4 micro-batches
+    params = T.init_params(job["pipe_cfg"], 0, device=dev_)
+    x_micro = job["pipe_x"]
+    pos = torch.arange(x_micro.shape[2], device=dev_)[None].expand(
+        x_micro.shape[1], -1)
+
+    def block_fn(layers, h):
+        for i, lp in layers:
+            h, _ = T._block(cfg, lp, T._Named(FpCtx(), f"layer{i}/"), h,
+                            lambda p, c, x: A.attention(cfg, p, c, x, pos))
+        return h
+
+    stages = PP.split_stages(list(enumerate(params["layers"])), world)
+    before = dict(C.HOST_COPIES)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        y = PP.pipeline_apply(block_fn, stages[rank], x_micro)
+        if on_card:
+            torch.cuda.synchronize(dev_)
+        out["pipe_s"] = time.perf_counter() - t0
+    out["pipe_gap"] = float((y - job["pipe_ref"]).abs().max())
+    out["pipe_scale"] = float(job["pipe_ref"].abs().max())
+    out["pipe_host_copies"] = {k: C.HOST_COPIES[k] - before[k]
+                               for k in before}
+    del params, y
+
+    # (d) the ring matmul at gpt2's mlp_up, the hierarchical sum on 2 x 2
+    x, w = job["mm_x"], job["mm_w"]
+    m_, n_ = x.shape[0] // world, w.shape[1] // world
+    before = dict(C.HOST_COPIES)
+    yl = C.allgather_matmul(x[rank * m_:(rank + 1) * m_],
+                            w[:, rank * n_:(rank + 1) * n_].contiguous())
+    want = x @ w[:, rank * n_:(rank + 1) * n_]
+    out["mm_gap"] = float((yl - want).abs().max())
+    out["mm_scale"] = float(want.abs().max())
+    out["mm_host_copies"] = {k: C.HOST_COPIES[k] - before[k] for k in before}
+    pod_data = M.make_mesh((2, 2), ("pod", "data"), device=device_name)
+    c_ = SH.coordinate(pod_data)
+    hx = job["hier_x"][c_["pod"], c_["data"]]
+    hs = C.hierarchical_psum(hx, pod_data.get_group("data"),
+                             pod_data.get_group("pod"))
+    out["hier_equal"] = torch.equal(hs, job["hier_x"].sum((0, 1)))
+    return out
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def dist_phase(torch, dev, cfg, card, scratch: Path):
+    """Phase 19: distributed training on gloo ranks sharing ``dev`` (NCCL
+    refuses two ranks on one device).  Returns the phase's report."""
+    from repro_torch.core.context import FpCtx
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, init_state
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.ranks import run_ranks
+
+    rep = {}
+    shutil.rmtree(scratch, ignore_errors=True)
+    pipe = TokenPipeline(PipelineConfig(seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+    batches = [pipe.batch_at(i) for i in range(DIST_STEPS)]
+    acfg = AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+
+    # the single-device step on the same card and batches
+    params = T.init_params(cfg, 0, device=dev)
+    state = init_state(params)
+    step = make_train_step(cfg, acfg, device=dev)
+    single, single_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, {
+            k: torch.as_tensor(v, device=dev) for k, v in b.items()})
+        torch.cuda.synchronize()
+        single_s.append(time.perf_counter() - t0)
+        single.append({k: float(v) for k, v in m.items()})
+    del state
+
+    # the pipeline's input and its unpipelined reference, micro-batch by
+    # micro-batch (the shapes the stages run)
+    tokens = torch.as_tensor(batches[0]["tokens"], device=dev)
+    # gpt2-small's 12 layers; a reduced rehearsal's depth rounds up to 4
+    pipe_cfg = cfg.replace(n_layers=-(-cfg.n_layers // 4) * 4)
+    p0 = T.init_params(pipe_cfg, 0, device=dev)
+    with torch.no_grad():
+        x = T._embed(cfg, p0, tokens)
+        x_micro = x.reshape(PIPE_MICRO, -1, *x.shape[1:])
+        pos = torch.arange(x.shape[1], device=dev)[None].expand(
+            x_micro.shape[1], -1)
+        pipe_ref = torch.empty_like(x_micro)
+        for j in range(PIPE_MICRO):
+            h = x_micro[j]
+            for i, lp in enumerate(p0["layers"]):
+                h, _ = T._block(pipe_cfg, lp, T._Named(FpCtx(), f"layer{i}/"), h,
+                                lambda p, c, x_: A.attention(cfg, p, c, x_,
+                                                             pos))
+            pipe_ref[j] = h
+    del p0
+    gen = torch.Generator(device=dev).manual_seed(19)
+    mm_x = torch.randn(32, cfg.d_model, device=dev, generator=gen)
+    mm_w = torch.randn(cfg.d_model, cfg.d_ff, device=dev, generator=gen)
+    mm_w /= math.sqrt(cfg.d_model)
+    hier_x = torch.arange(2 * 2 * 3 * 6 * 5, dtype=torch.float32,
+                          device=dev).reshape(2, 2, 3, 6, 5)
+    job = {"cfg": cfg, "batches": batches, "acfg": acfg,
+           "ref_params": params, "pipe_cfg": pipe_cfg, "pipe_x": x_micro,
+           "pipe_ref": pipe_ref,
+           "mm_x": mm_x, "mm_w": mm_w, "hier_x": hier_x,
+           "ckpt_dir": str(scratch / "ckpt")}
+    worlds = {}
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        outs = run_ranks(dist_rank, world, (world, str(ROOT / "src"),
+                                            str(dev), job),
+                         backend="gloo", timeout_s=TP_TIMEOUT_S)
+        worlds[world] = (outs, time.perf_counter() - t0)
+    del job, params, x_micro, pipe_ref
+    shutil.rmtree(scratch, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (a) the sharded steps against the single-device steps
+    for world, (outs, wall) in worlds.items():
+        mesh_s = "(2, 1)" if world == 2 else "(2, 2)"
+        for rank, o in enumerate(outs):
+            for k_, (got, want) in enumerate(zip(o["metrics"], single)):
+                for key in ("loss", "grad_norm"):
+                    if abs(got[key] - want[key]) > DIST_RTOL * abs(want[key]):
+                        raise AssertionError(
+                            f"sharded step {k_ + 1} at {mesh_s}, rank {rank}:"
+                            f" {key} {got[key]} against the single-device "
+                            f"{want[key]}")
+            if o["param_gap"] > DIST_PARAM_ATOL:
+                raise AssertionError(f"sharded steps at {mesh_s}, rank {rank}:"
+                                     f" params {o['param_gap']} off")
+        med = _median([s_ for o in outs for s_ in o["step_s"][1:]])
+        gaps = [o["param_gap"] for o in outs]
+        loss_gap = max(abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                       for o in outs for g, w in zip(o["metrics"], single))
+        norm_gap = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                       for o in outs for g, w in zip(o["metrics"], single))
+        rep[f"mesh {mesh_s}"] = {
+            "wall_s": wall, "step_s": [o["step_s"] for o in outs],
+            "median_step_s": med, "param_gap": gaps,
+            "loss_rel_gap": loss_gap, "grad_norm_rel_gap": norm_gap,
+            "local_bytes": [o["local_bytes"] for o in outs],
+            "global_bytes": outs[0]["global_bytes"],
+            "peak_gib": [o["peak_gib"] for o in outs]}
+        print(f"dist gpt2-small sharded step at mesh {mesh_s} ({world} gloo "
+              f"ranks, one card): 3 steps, loss "
+              f"{[round(g['loss'], 5) for g in outs[0]['metrics']]}, largest "
+              f"gaps from the single-device step: loss {loss_gap:.2e} rel, "
+              f"grad_norm {norm_gap:.2e} rel, params {max(gaps):.2e} abs "
+              f"(gates {DIST_RTOL:g} / {DIST_PARAM_ATOL:g}); median step "
+              f"{med * 1e3:.1f} ms (host clock, gloo transport; the "
+              f"single-device step {_median(single_s[1:]) * 1e3:.1f}"
+              f" ms); params + mu + nu a rank "
+              f"{[round(o['local_bytes'] / 2**20, 1) for o in outs]} MiB of "
+              f"{outs[0]['global_bytes'] / 2**20:.1f} MiB; peak "
+              f"{[o['peak_gib'] and round(o['peak_gib'], 2) for o in outs]} GiB; world "
+              f"{wall:.1f} s  [{card}]", flush=True)
+    rep["single_step_s"] = single_s
+
+    # (b) the compressed all-reduce at dp 2
+    ef = [o["ef"] for o in worlds[2][0]]
+    for rank, e in enumerate(ef):
+        if not e["one_shot_rel"] < EF_SHOT_RTOL:
+            raise AssertionError(f"int8 EF sum, rank {rank}: one-shot relative "
+                                 f"error {e['one_shot_rel']}")
+        if not e["residual_over_g"] < 1.0:
+            raise AssertionError(f"int8 EF sum, rank {rank}: residual "
+                                 f"{e['residual_over_g']} x |g| over 20 "
+                                 "repeats")
+    rep["ef"] = ef
+    print(f"dist int8 error-feedback sum of one step's gradients at dp 2 "
+          f"({ef[0]['leaves']} leaves): one-shot relative error by rank "
+          f"{[round(e['one_shot_rel'], 5) for e in ef]} (gate "
+          f"{EF_SHOT_RTOL}); the residual over 20 repeats at most "
+          f"{[round(e['residual_over_g'], 5) for e in ef]} x max |g| (gate "
+          f"1)  [{card}]", flush=True)
+
+    # (c)-(e) at 4 ranks
+    outs = worlds[4][0]
+    for rank, o in enumerate(outs):
+        if o["pipe_gap"] > PIPE_RTOL * o["pipe_scale"]:
+            raise AssertionError(f"pipeline, stage {rank}: {o['pipe_gap']} "
+                                 "off the unpipelined stack")
+        if o["mm_gap"] > MATMUL_RTOL * o["mm_scale"]:
+            raise AssertionError(f"ring matmul, rank {rank}: {o['mm_gap']} "
+                                 "off one matmul")
+        if not o["hier_equal"]:
+            raise AssertionError(f"hierarchical sum, rank {rank}: not exact")
+        if not o["ckpt_equal"]:
+            raise AssertionError(f"checkpoint, rank {rank}: a restored shard "
+                                 "differs from the saved tree")
+    rep["world4"] = [{k: o[k] for k in (
+        "pipe_gap", "pipe_scale", "pipe_s", "pipe_host_copies", "mm_gap",
+        "mm_scale", "mm_host_copies", "hier_equal", "ckpt_equal",
+        "ckpt_save_s")} for o in outs]
+    print(f"dist GPipe, gpt2-small's 12 blocks in 4 stages of 3, "
+          f"{PIPE_MICRO} micro-batches of {TRAIN_BATCH // PIPE_MICRO} x "
+          f"{TRAIN_SEQ}: max abs gap from the unpipelined stack "
+          f"{max(o['pipe_gap'] for o in outs):.2e} (scale "
+          f"{outs[0]['pipe_scale']:.2f}, gate {PIPE_RTOL:g} of it), "
+          f"{max(o['pipe_s'] for o in outs):.3f} s; host copies by stage "
+          f"{[o['pipe_host_copies'] for o in outs]}; ring matmul [32, "
+          f"{cfg.d_model}] x [{cfg.d_model}, {cfg.d_ff}] / 4: max gap "
+          f"{max(o['mm_gap'] for o in outs):.2e} (scale "
+          f"{outs[0]['mm_scale']:.2f}, gate {MATMUL_RTOL:g} of it), host "
+          f"copies by rank {[o['mm_host_copies'] for o in outs]}; "
+          f"hierarchical sum on (pod 2, data 2) "
+          f"exact; checkpoint saved at (2, 2) in "
+          f"{outs[0]['ckpt_save_s']:.1f} s and restored bit-equal at (4, 1) "
+          f"and (1, 4)  [{card}]", flush=True)
+    rep["host_copies_routed"] = sorted(C.HOST_ROUTED["gloo"])
+    return rep
 
 def main() -> int:
     import numpy as np
@@ -3227,7 +3609,12 @@ def main() -> int:
         report["timings"], phases)
     main_runs.update(fam_runs)
 
-    # -- 19. result lines ---------------------------------------------------------
+    # -- 19. distributed training -----------------------------------------------
+    report["distributed"] = dist_phase(torch, dev, cfg, card,
+                                       ROOT / "build" / "chip_smoke_dist")
+    phases.done("distributed training")
+
+    # -- 20. result lines ---------------------------------------------------------
     pa_src = ("src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:161")
     sources = {"rowwise_quantize": ("src/repro_torch/csrc/rowwise_quantize.cu",

@@ -106,14 +106,43 @@ def load_bundle(path, groups: Iterable[str]
 # Training checkpoints
 # ---------------------------------------------------------------------------
 
+def _sharded(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+    while isinstance(tree, (dict, list)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return isinstance(tree, DTensor)
+
+
 def save(ckpt_dir, step: int, params, opt_state=None,
          extra: Optional[Dict[str, Any]] = None, keep: int = 3) -> Path:
     """Write ``step_%08d`` (params, optional AdamW state, ``meta.json``
     with ``step`` and ``extra``) atomically, then ``LATEST``, then drop
-    all but the newest ``keep`` step directories."""
+    all but the newest ``keep`` step directories.
+
+    Sharded trees (DTensor leaves, ``parallel.sharding.distribute``):
+    every rank of the mesh calls ``save``; the leaves are gathered to
+    whole tensors, rank 0 writes the one checkpoint and the other ranks
+    wait for it at a barrier.  The files are the unsharded format, so a
+    checkpoint restores at any mesh."""
     base = Path(ckpt_dir)
-    base.mkdir(parents=True, exist_ok=True)
     final = base / f"step_{step:08d}"
+    if _sharded(params):
+        import torch.distributed as dist
+        from repro_torch.parallel.sharding import gather_tree
+        params = gather_tree(params)
+        if opt_state is not None:
+            opt_state = gather_tree(opt_state)
+        if dist.get_rank() == 0:
+            _write(base, final, step, params, opt_state, extra, keep)
+        dist.barrier()
+        return final
+    _write(base, final, step, params, opt_state, extra, keep)
+    return final
+
+
+def _write(base: Path, final: Path, step: int, params, opt_state, extra,
+           keep: int) -> None:
+    base.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=base, prefix=".tmp_"))
     try:
         np.savez(tmp / "params.npz", **flatten(to_reference_layout(params)))
@@ -131,7 +160,6 @@ def save(ckpt_dir, step: int, params, opt_state=None,
     (base / "LATEST.tmp").write_text(str(step))
     os.replace(base / "LATEST.tmp", base / "LATEST")
     _gc(base, keep)
-    return final
 
 
 def _gc(base: Path, keep: int) -> None:
@@ -206,19 +234,34 @@ def _device(tree):
     return tree.device
 
 
-def restore(ckpt_dir, step: int, params_template, opt_template=None
+def restore(ckpt_dir, step: int, params_template, opt_template=None,
+            shardings=None, opt_shardings=None, mesh=None
             ) -> Tuple[Any, Optional[Any], Dict[str, Any]]:
     """Read ``step_%08d`` back into the port's layout on the templates'
     device: (params, AdamW state or None, meta).  The templates (the
-    port's params and ``optim.adamw.init_state`` trees) give each leaf's
-    expected shape and dtype."""
+    port's params and ``optim.adamw.init_state`` trees, whole or sharded)
+    give each leaf's expected shape and dtype.
+
+    ``shardings`` (a spec tree, ``parallel.sharding.param_specs``) and
+    ``mesh`` restore the params as DTensors: each rank reads the
+    unsharded files and keeps its shard, so a checkpoint saved at one mesh
+    restores at another (elastic rescale).  ``opt_shardings`` lays out the
+    AdamW moments the same way (``{"mu": specs, "nu": specs}``; ``step``
+    stays a plain tensor)."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     params = _like(params_template, as_port_params(
         None, _read(d / "params.npz", params_template),
         _device(params_template)))
+    if shardings is not None:
+        from repro_torch.parallel.sharding import distribute
+        params = distribute(params, shardings, mesh)
     opt = None
     if opt_template is not None and (d / "opt.npz").exists():
         opt = _like(opt_template, as_port_opt_state(
             None, _read(d / "opt.npz", opt_template), _device(opt_template)))
+        if opt_shardings is not None:
+            from repro_torch.parallel.sharding import distribute
+            opt.update({k: distribute(opt[k], opt_shardings[k], mesh)
+                        for k in ("mu", "nu")})
     meta = json.loads((d / "meta.json").read_text())
     return params, opt, meta

@@ -67,23 +67,33 @@ def make_train_step(cfg: ModelConfig,
     ctx = as_ctx(quant, device)
 
     def train_step(params, opt_state, batch):
-        leaves = [t.detach().requires_grad_(True)
-                  for t in adamw.tree_leaves(params)]
-        p = adamw.tree_unflatten(params, leaves)
-        if cast_bf16:
-            p = adamw.tree_map(lambda x: x.to(torch.bfloat16)
-                               if x.dtype == torch.float32 else x, p)
-        loss, parts = T.lm_loss(cfg, p, batch, ctx=ctx)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(t) if g is None else g
-                 for t, g in zip(leaves, grads)]
+        loss, parts, grads = loss_and_grads(cfg, params, batch, ctx,
+                                            cast_bf16)
         new_params, new_state, metrics = adamw.apply_updates(
-            acfg, params, adamw.tree_unflatten(params, grads), opt_state)
+            acfg, params, grads, opt_state)
         metrics.update(loss=loss.detach(), ce=parts["ce"].detach(),
                        aux=parts["aux"].detach())
         return new_params, new_state, metrics
 
     return train_step
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch, ctx,
+                   cast_bf16: bool = False):
+    """The train step's forward and backward: (``lm_loss``, its parts, the
+    gradients as a tree shaped like ``params``; an unused leaf's is
+    zeros)."""
+    leaves = [t.detach().requires_grad_(True)
+              for t in adamw.tree_leaves(params)]
+    p = adamw.tree_unflatten(params, leaves)
+    if cast_bf16:
+        p = adamw.tree_map(lambda x: x.to(torch.bfloat16)
+                           if x.dtype == torch.float32 else x, p)
+    loss, parts = T.lm_loss(cfg, p, batch, ctx=ctx)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    return loss, parts, adamw.tree_unflatten(params, grads)
 
 
 def make_eval_step(cfg: ModelConfig, quant=None, device="cuda"):

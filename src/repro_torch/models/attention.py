@@ -39,6 +39,7 @@ import torch
 from repro_torch.kernels import paged_attention as PA
 from repro_torch.models.common import ModelConfig, apply_rope, softcap
 from repro_torch.parallel import serve_sharding as TP
+from repro_torch.parallel.act_sharding import cache_update_mode
 from repro_torch.serve import kvq
 
 NEG_INF = -1e9
@@ -156,16 +157,26 @@ def attention_decode(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor,
     holds one layer's k/v [b, s_max, kvh, dh] (int8 caches add
     k/v_scale [b, s_max, kvh, 1]) and ``pos``, a 0-d int32 tensor.  The
     new K/V are quantized by the cache's mode and written at ``pos`` in
-    place; the whole cache is read back dequantized and attended with the
-    causal (and, for a local layer, window) mask.  Returns (out, cache)."""
+    place (an indexed copy, or under ``act_sharding``'s "select" mode an
+    elementwise ``where(arange == pos)``, bit-equal); the whole cache is
+    read back dequantized and attended with the causal (and, for a local
+    layer, window) mask.  Returns (out, cache)."""
     b = x.shape[0]
     pos = cache["pos"]
     positions = pos.reshape(1, 1).expand(b, 1)
     q, k, v = _project_qkv(cfg, p, ctx, x, positions)
     quantizer = kvq.from_cache(cache)
-    at = pos.reshape(1).long()
-    for n, val in quantizer.quantize(k, v).items():
-        cache[n].index_copy_(1, at, val.to(cache[n].dtype))
+    parts = quantizer.quantize(k, v)
+    if cache_update_mode() == "select":
+        # elementwise write (local to a shard of a sequence-sharded cache)
+        sel = (torch.arange(cache["k"].shape[1], device=x.device)
+               == pos)[None, :, None, None]
+        for n, val in parts.items():
+            cache[n].copy_(torch.where(sel, val.to(cache[n].dtype), cache[n]))
+    else:
+        at = pos.reshape(1).long()
+        for n, val in parts.items():
+            cache[n].index_copy_(1, at, val.to(cache[n].dtype))
     kk, vv = quantizer.dequantize(cache, x.dtype)
     kpos = torch.arange(kk.shape[1], device=x.device)
     allow = kpos <= pos

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.parallel import global_stats as GS
+
 
 def pad_vocab(vocab: int, multiple: int = 128) -> int:
     """Pad vocab so embedding/vocab dims divide every mesh axis (Megatron
@@ -178,7 +180,9 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross-entropy.  ``vocab_size`` is the real vocab: the
-    padded logit columns are left out of the normalizer."""
+    padded logit columns are left out of the normalizer.  Under
+    ``global_stats.data_parallel`` the mean's denominator is the token
+    count of the whole batch across the data-parallel ranks."""
     logits = logits.float()
     pad = logits.shape[-1] - vocab_size
     if pad > 0:
@@ -189,6 +193,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if mask is None:
-        return torch.mean(nll)
+        if not GS.active():
+            return torch.mean(nll)
+        n = torch.full((), float(nll.numel()), device=nll.device)
+        return torch.sum(nll) / GS.global_sum(n)
     mask = mask.float()
-    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.sum(nll * mask) / torch.clamp_min(
+        GS.global_sum(torch.sum(mask)), 1.0)

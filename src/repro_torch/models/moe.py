@@ -24,20 +24,25 @@
     ``mlp()`` (eager sites ``layer{i}/mlp_up|down``).
   * The Switch aux load-balance loss comes back beside the output.
 
-Not here: ``set_expert_sharding`` (the expert-parallel sharding
-constraint on the dispatch buffer); it joins with the sharded training
-slice.
+  * ``set_expert_sharding(spec_fn)`` installs the expert-parallel
+    constraint: ``spec_fn([g, e, C, d])`` gives the dispatch buffer's spec
+    (g over dp, e over "model") or None, applied through
+    ``act_sharding.constrain_to`` (a plain tensor passes unchanged).
+  * Under ``global_stats.data_parallel`` the aux loss takes the top-1
+    counts and the token count of the whole batch across the ranks.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, dense_init
 from repro_torch.models.mlp import init_mlp, mlp
+from repro_torch.parallel import global_stats as GS
+from repro_torch.parallel.act_sharding import constrain_to
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> dict:
@@ -148,6 +153,11 @@ def moe(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     cap = _capacity(cfg, tg, factor=1.25 if train else None)
     buf, slot, st, sg, keep = _dispatch_group(cfg, xg, probs, cap)
+    spec_fn = _expert_sharding()
+    if spec_fn is not None:
+        spec = spec_fn((g, e, cap, d))
+        if spec is not None:
+            buf = constrain_to(buf.reshape(g, e, cap, d), spec)
 
     # the expert FFN, quantized per expert: groups fold into the token dim
     xe = buf.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
@@ -164,7 +174,28 @@ def moe(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor, *,
 
     # Switch aux loss, global over all groups
     top1 = torch.argmax(probs, dim=-1).reshape(-1)
-    assign_frac = torch.bincount(top1, minlength=e).float() / (g * tg)
-    prob_frac = probs.reshape(-1, e).mean(dim=0)
+    counts = torch.bincount(top1, minlength=e).float()
+    if GS.active():   # a rank's share of the whole batch's aux loss
+        n = GS.global_sum(torch.full((), float(g * tg), device=x.device))
+        assign_frac = GS.global_sum(counts) / n
+        prob_frac = probs.reshape(-1, e).sum(dim=0) / n
+    else:
+        assign_frac = counts / (g * tg)
+        prob_frac = probs.reshape(-1, e).mean(dim=0)
     aux = e * torch.sum(assign_frac * prob_frac)
     return yf.reshape(b, s, d), aux
+
+
+_EXPERT_SHARDING: Optional[Callable] = None
+
+
+def set_expert_sharding(spec_fn: Optional[Callable]) -> None:
+    """Install a callable shape -> spec or None for the [g, e, C, d]
+    dispatch buffer (g over dp, e over "model").  None disables the
+    constraint (single-device runs)."""
+    global _EXPERT_SHARDING
+    _EXPERT_SHARDING = spec_fn
+
+
+def _expert_sharding():
+    return _EXPERT_SHARDING

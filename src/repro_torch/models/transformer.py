@@ -47,6 +47,7 @@ from repro_torch.models import ssm as S
 from repro_torch.models.common import (ModelConfig, apply_norm,
                                        cross_entropy, dense_init, softcap)
 from repro_torch.parallel import serve_sharding as TP
+from repro_torch.parallel.act_sharding import constrain
 
 
 class _Named:
@@ -118,9 +119,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     encoder, and an ``lm_head`` [d, V_pad] for an untied head.
     ``torch.Generator`` streams differ from ``jax.random``: tests that
     compare with the reference pass its params through
-    ``repro_torch.convert.from_jax_params`` instead."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    ``repro_torch.convert.from_jax_params`` instead.  On the ``meta``
+    device the tree holds shapes and dtypes only (no generator there)."""
+    gen = None
+    if torch.device(device).type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
     d = cfg.d_model
     params = {
         "embed": 0.02 * torch.randn((cfg.padded_vocab, d), generator=gen,
@@ -169,6 +173,7 @@ def _block(cfg, lp, ctx, x, attend, train: bool = False):
     """One pre-norm layer; ``attend(p, ctx, h)`` is the attention flavour;
     ``train`` selects the MoE block's capacity-factor dispatch.  Returns
     (x, the MoE aux loss, or None for a dense layer)."""
+    x = constrain(x)
     h = apply_norm(cfg, lp["ln1"], x)
     a = attend(lp["attn"], ctx, h)
     if cfg.sandwich_norm:
@@ -231,6 +236,7 @@ def _layer_call(cfg, fn, x):
 
 
 def _mamba_block(cfg, lp, ctx, x, want_state=False):
+    x = constrain(x)
     h = apply_norm(cfg, lp["ln1"], x)
     o, st = S.ssm_block(cfg, lp["ssm"], ctx, h, want_state=want_state)
     return x + o, st
@@ -243,6 +249,7 @@ def _decoder_block(cfg, lp, ctx, x, memory, attend):
     ``_decoder_block``: site names keep ``layer{i}/``, while the KV
     observer sees the prefix "" for every decoder layer."""
     nctx = _Named(ctx, "")
+    x = constrain(x)
     h = apply_norm(cfg, lp["ln1"], x)
     x = x + attend(lp["attn"], nctx, h)
     h = apply_norm(cfg, lp["ln3"], x)

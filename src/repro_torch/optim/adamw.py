@@ -107,23 +107,30 @@ def global_norm(tree) -> torch.Tensor:
                           for l in tree_leaves(tree)))
 
 
+def _clip(grads, norm: torch.Tensor, max_norm: float):
+    scale = torch.clamp_max(_f32(max_norm, norm) / torch.clamp_min(norm, 1e-9),
+                            1.0)
+    return tree_map(lambda g: (g * scale).to(g.dtype), grads)
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """``grads`` scaled so that their global norm is at most ``max_norm``,
     and the norm before scaling."""
     norm = global_norm(grads)
-    scale = torch.clamp_max(_f32(max_norm, norm) / torch.clamp_min(norm, 1e-9),
-                            1.0)
-    return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
+    return _clip(grads, norm, max_norm), norm
 
 
-def apply_updates(cfg: AdamWConfig, params, grads, state
+def apply_updates(cfg: AdamWConfig, params, grads, state,
+                  norm_fn: Callable = global_norm
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (new params, new state, {"lr",
-    "grad_norm"}); the inputs are left as they were."""
+    "grad_norm"}); the inputs are left as they were.  ``norm_fn(grads)``
+    is the global norm that clipping uses (a sharded step passes one that
+    sums over the ranks' shards)."""
     with torch.no_grad():
-        gnorm = global_norm(grads)
+        gnorm = norm_fn(grads)
         if cfg.clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
+            grads = _clip(grads, gnorm, cfg.clip_norm)
 
         step = state["step"] + 1
         lr = schedule_lr(cfg, step)

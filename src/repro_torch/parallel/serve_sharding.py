@@ -41,6 +41,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel import sharding as SH
+
 SERVE_AXIS = "model"
 
 Spec = Tuple[Optional[str], ...]
@@ -105,10 +107,9 @@ def serve_group(tp: int, group=None):
 
 def fit_spec(size: int, shape: Sequence[int], wanted: Sequence) -> Spec:
     """A spec over one serving axis of ``size`` ranks: each dim keeps the
-    axis it wants only where ``size`` divides it (the reference's
-    ``sharding.fit_spec`` on a 1-D mesh)."""
-    return tuple(SERVE_AXIS if axis is not None and dim % size == 0 else None
-                 for dim, axis in zip(shape, wanted))
+    axis it wants only where ``size`` divides it (``sharding.fit_spec`` on
+    a 1-D mesh, as the reference's)."""
+    return SH.fit_spec({SERVE_AXIS: size}, shape, wanted)
 
 
 def pool_specs(size: int, shapes: Dict[str, Sequence[int]]) -> Dict[str, Spec]:

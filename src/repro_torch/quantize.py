@@ -390,7 +390,8 @@ def calibrate_model(cfg, params, batches: Iterable, device="cuda",
     forwards feed both: the ``CollectCtx`` sees every matmul input, the
     KV observer every attention's post-RoPE K/V.  ``forward(params,
     batch, ctx)`` runs one batch; the default, as the reference's, runs
-    ``transformer.forward`` on ``batch["tokens"]`` alone, so an
+    ``transformer.forward`` on ``batch["tokens"]`` alone (numpy, a list or
+    a tensor on any device, moved to ``device``), so an
     encoder-decoder (whose forward needs frames) must pass its own."""
     from repro_torch.models import attention as A
     from repro_torch.models import transformer as T
@@ -398,8 +399,7 @@ def calibrate_model(cfg, params, batches: Iterable, device="cuda",
 
     if forward is None:
         def forward(p, batch, ctx):
-            tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                     device=device)
+            tokens = torch.as_tensor(batch["tokens"], device=device)
             return T.forward(cfg, p, tokens, ctx)
 
     collector = kvq.KVCalibCollector()
