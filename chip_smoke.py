@@ -191,13 +191,32 @@ its seconds):
    split 4 ways) within MATMUL_RTOL of one matmul, ``hierarchical_psum`` on
    a (pod 2, data 2) mesh exact; (e) a checkpoint saved at (2, 2) restored
    bit-equal at (4, 1) and (1, 4).  No kernel runs on this path.
-20. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
+20. Analysis and the dry-run (``dryrun_phase``): (a) every cell of the 11
+   configs x 4 shapes (``launch/specs.py``) traced by
+   ``launch.dryrun.run_cell`` at the pod mesh (a fake world of 256 ranks,
+   meta tensors), and qwen1.5-110b's and dbrx-132b's ``train_4k`` at two
+   pods (512), in DRYRUN_WORKERS spawned processes: every cell ok, or
+   skipped for the reference's reason (long_500k on the 9 archs that are
+   neither SSM nor hybrid); one line a cell of roofline arithmetic on
+   the H100 constants; (b) ``lower_paged_cell`` for qwen1.5-110b and
+   dbrx-132b at tp 4 on int8 pages: heads sharded, 4 KV shards, a shard's
+   pool bytes a quarter of the global; (c) qwen2-0.5b's ``decode_32k``
+   per-rank program (batch 128 / 16 = 8, a dense bf16 KV cache of 32768
+   positions, fused MUXQ on ``synthetic_qparams``'s masks) built on the
+   card and run once counted: (i) the counted flops, bytes and calls of
+   ``rowwise_quantize`` and ``muxq_gemm`` and their launches equal the
+   meta trace's of the same program (and the sweep's cell), (ii) the next
+   tokens through the kernels equal those through the plain versions;
+   the median of DRYRUN_STEPS synchronized steps on CUDA events beside
+   the roofline's step, and the peak device memory beside the trace's.
+21. Print one JSON line with every kernel's numbers, the ``nvidia-smi``
    line, and the final ``{"ok": true, "device": ...}`` line.
 
 ``launches`` in the JSON line counts the launches of the full-width
 serving runs of phases 5, 8, 10, 11, 12, 14 and 15, of every rank of
 phase 16, of phase 17's fused evaluation and int8 dense-cache serve and
-of phase 18's three fused serves (each run starts from zero counts); the traced serve of phase 6
+of phase 18's three fused serves and of phase 20's decode step (each
+run starts from zero counts); the traced serve of phase 6
 and the launcher's reduced-width run
 of phase 9 keep their own counts in ``chip_smoke.json``.  ``flash_attention`` is on no
 serving path and has 0.  It imports nothing of JAX or of the
@@ -210,6 +229,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -217,13 +237,15 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense): HBM3 bytes/s, int8 tensor-core ops/s,
-# bf16 tensor-core flop/s, float32 (non-tensor-core) flop/s
-HBM_BYTES_S = 3.35e12
-INT8_OPS_S = 1979e12
-BF16_FLOPS_S = 989e12
-F32_FLOPS_S = 67e12
+# H100 SXM data-sheet peaks (dense), the port's one copy: HBM3 bytes/s,
+# int8 tensor-core ops/s, bf16 tensor-core flop/s, float32
+# (non-tensor-core) flop/s
+from repro_torch.analysis.roofline import HBM_BW as HBM_BYTES_S  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_BF16 as BF16_FLOPS_S  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_F32 as F32_FLOPS_S  # noqa: E402
+from repro_torch.analysis.roofline import PEAK_INT8 as INT8_OPS_S  # noqa: E402
 TIMING_SETS = 5     # time_ms: median over this many sets of replays
 INT_MM_ROWS = 32    # the int8 yardstick's rows at decode M (it wants M > 16)
 SLEEP_CYCLES = 200_000  # time_ms: a busy wait ahead of each timed replay
@@ -314,6 +336,13 @@ PIPE_RTOL = 1e-5        # (c) pipelined vs unpipelined, of the output's
                         # abs-max (the same shapes on the same card)
 MATMUL_RTOL = 1e-5      # (d) the ring matmul's row blocks vs one matmul,
                         # of the output's abs-max
+# phase 20: analysis and the dry-run
+DRYRUN_WORKERS = 4      # (a), (b): spawned processes tracing the cells
+DRYRUN_MULTIPOD = ("qwen1.5-110b", "dbrx-132b")   # train_4k at 2 pods too
+DRYRUN_TP_ARCHS = ("qwen1.5-110b", "dbrx-132b")   # (b) at tp 4, int8 pages
+DRYRUN_TP = 4
+DRYRUN_CELL = ("qwen2-0.5b", "decode_32k")        # (c) held against the card
+DRYRUN_STEPS = 20       # (c) timed steps (median)
 
 
 def smi_line() -> str:
@@ -1358,6 +1387,33 @@ def dist_rank(rank, world, src, device_name, job):
     return out
 
 
+def _kernel_label(name: str) -> str:
+    """A profiler row's kernel name, short: the functor of PyTorch's
+    elementwise kernels (``direct_copy_kernel_cuda``), else the first 40
+    characters."""
+    m = re.search(r"native::(?:\(anonymous namespace\)::)?(\w+)\(", name)
+    return m.group(1) if m else name[:40]
+
+
+def event_times(torch, fn, n: int):
+    """Milliseconds of ``n`` calls of ``fn`` on CUDA events, each call
+    synchronized (the host's work between the launches included), after
+    3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
 def _median(xs):
     xs = sorted(xs)
     return xs[len(xs) // 2]
@@ -1534,6 +1590,188 @@ def dist_phase(torch, dev, cfg, card, scratch: Path):
           f"and (1, 4)  [{card}]", flush=True)
     rep["host_copies_routed"] = sorted(C.HOST_ROUTED["gloo"])
     return rep
+
+def dryrun_phase(torch, dev, card, cell_cfg, reset_counts, read_counts):
+    """Phase 20: the dry-run's sweep (a) and tensor-parallel cells (b) in
+    spawned workers, then (c) one cell's per-rank program (``cell_cfg``
+    at DRYRUN_CELL's shape) on the card against its meta trace.  Returns
+    (the phase's report, {label: launch counts} of (c)'s counted step)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    from repro_torch.analysis import roofline as R
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import specs as SP
+
+    rep = {}
+    # (a) + (b): the longest cells (train) first
+    cells = ([(a, "train_4k", True) for a in DRYRUN_MULTIPOD]
+             + [(a, s_, False) for s_ in SP.SHAPES for a in ARCHS])
+    t0 = time.perf_counter()
+    with cf.ProcessPoolExecutor(DRYRUN_WORKERS,
+                                mp_context=mp.get_context("spawn")) as pool:
+        tp_futs = [pool.submit(D.lower_paged_cell, a, DRYRUN_TP,
+                               kv_mode="int8") for a in DRYRUN_TP_ARCHS]
+        futs = [pool.submit(D.run_cell, a, s_, multi_pod=mp_,
+                            quant=D.resolve_quant("auto", s_), save=True)
+                for a, s_, mp_ in cells]
+        recs = [f.result() for f in futs]
+        tps = [f.result() for f in tp_futs]
+    sweep_s = time.perf_counter() - t0
+    bad, n_skip = [], 0
+    for rec in sorted(recs, key=lambda r: (r["arch"], r["shape"], r["mesh"])):
+        print(f"{D.summary(rec)} [{card}]", flush=True)
+        c = get_config(rec["arch"])
+        if rec["status"] == "skipped":
+            n_skip += 1
+            want = SP.cell_supported(c, SP.SHAPES[rec["shape"]])
+            if (rec["shape"] != "long_500k" or c.family in ("ssm", "hybrid")
+                    or want != (False, rec["reason"])):
+                bad.append(rec)
+        elif rec["status"] != "ok":
+            bad.append(rec)
+    if bad or n_skip != 9:
+        raise AssertionError(
+            f"dry-run sweep: {n_skip} cells skipped (9 expected); bad cells "
+            + "; ".join(f"{r['arch']} {r['shape']} {r['mesh']}: "
+                        f"{r.get('error', r.get('reason'))}" for r in bad))
+    big = sorted((r for r in recs if r["status"] == "ok"),
+                 key=lambda r: -r["memory"]["peak_size_in_bytes"])[:5]
+    print(f"dry-run sweep: {len(recs)} cells ({len(recs) - n_skip} ok, "
+          f"{n_skip} skipped for the reference's reason) in {sweep_s:.1f} s "
+          f"on {DRYRUN_WORKERS} workers; largest per-rank peaks "
+          + ", ".join(f"{r['arch']} {r['shape']} {r['mesh']} "
+                      f"{r['memory']['peak_size_in_bytes'] / 2**30:.1f} GiB"
+                      for r in big) + "  (roofline arithmetic on H100 "
+          f"constants, not a measurement) [{card}]", flush=True)
+    for cell in tps:
+        if not (cell["lowered"] and cell["heads_sharded"]
+                and cell["kv_shards"] == DRYRUN_TP
+                and cell["cache_bytes_per_shard"]
+                == cell["cache_bytes"] // DRYRUN_TP):
+            raise AssertionError(f"tensor-parallel dry-run: {cell}")
+        print(f"tensor-parallel dry-run {cell['arch']} tp {cell['tp']} "
+              f"[{cell['kv_mode']}]: {cell['kv_shards']} KV shards, "
+              f"{cell['cache_bytes_per_shard']} of {cell['cache_bytes']} pool "
+              "bytes a shard; one pooled decode of a rank traced on meta "
+              "tensors", flush=True)
+    rep.update(sweep_s=sweep_s, cells=recs, tensor_parallel=tps)
+
+    # (c) one cell's per-rank program on the card ----------------------------
+    arch, shape_name = DRYRUN_CELL
+    cfg = cell_cfg.replace(dtype="bfloat16", remat=True)
+    shape = SP.SHAPES[shape_name]
+    plan = {"data": 16, "model": 16}
+    sweep_rec = next(r for r in recs if (r["arch"], r["shape"], r["mesh"])
+                     == (arch, shape_name, "16x16"))
+    D._set_sharding(cfg, shape, plan, False)
+    try:
+        mstep, margs, mheld, tokens = D.serve_program(cfg, shape, plan,
+                                                      "muxq", device="meta")
+        meta = D.trace(mstep, margs, mheld)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        step, args, held, _ = D.serve_program(cfg, shape, plan, "muxq",
+                                              device=dev)
+
+        def layout(bufs):
+            return {s_: {f: (tuple(t.shape), t.stride(), t.dtype)
+                         for f, t in b_.items()} for s_, b_ in bufs.items()}
+        if layout(held) != layout(mheld):
+            raise AssertionError("(c) the buffers packed on the card differ "
+                                 "in shape from the meta program's")
+        del mstep, margs, mheld
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        on_card = D.trace(step, args, held)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak_card = torch.cuda.max_memory_allocated() - base
+        for name in ("rowwise_quantize", "muxq_gemm"):
+            got, want = on_card["kernels"][name], meta["kernels"][name]
+            if got != want or counts[name] != want["calls"]:
+                raise AssertionError(
+                    f"(c) {name}: card {got}, {counts[name]} launches; meta "
+                    f"trace {want}")
+            # (the emulator's rehearsal runs (c) at a reduced size)
+            if cell_cfg == get_config(arch) and sweep_rec["kernels"][name] \
+                    != want:
+                raise AssertionError(f"(c) {name}: the sweep's cell counted "
+                                     f"{sweep_rec['kernels'][name]}, the "
+                                     f"meta trace here {want}")
+        same_total = on_card["cost"] == meta["cost"]
+        with torch.no_grad():
+            prev = dispatch.set_fused_impl("ref")
+            try:
+                plain_tok, _ = step(*args)
+            finally:
+                dispatch.set_fused_impl(prev)
+            kern_tok, _ = step(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(plain_tok, kern_tok):
+            raise AssertionError("(c) next tokens through the kernels differ "
+                                 "from those through the plain versions")
+        times = event_times(torch, lambda: step(*args), DRYRUN_STEPS)
+        # where a step's time goes: 3 more steps under the profiler, their
+        # kernel time against the median unprofiled step
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                step(*args)
+            torch.cuda.synchronize()
+    finally:
+        D._reset_sharding()
+    # kernel rows only: an aten op's row also carries its kernels' time
+    rows = [(e.key, e.self_device_time_total / 3e3) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(t for _, t in rows)
+    top = [(_kernel_label(k), t) for k, t in sorted(
+        (r for r in rows if r[1] > 0), key=lambda r: -r[1])[:5]]
+    cost = meta["cost"]
+    roof = R.make_roofline(cost, meta["coll"], cfg, tokens, shape.mode, 256,
+                           int8_fraction=cost["int8 ops"] / cost["flops"])
+    step_ms = _median(times)
+    out = {"arch": arch, "shape": shape_name, "rows": int(args[1]["tokens"]
+                                                          .shape[0]),
+           "cost": cost, "card_cost": on_card["cost"],
+           "same_total_counts": same_total, "kernels": meta["kernels"],
+           "launches": {k: v for k, v in counts.items() if v},
+           "step_ms": step_ms, "step_ms_spread": (min(times), max(times)),
+           "roofline": roof.as_dict(), "ratio": step_ms / 1e3 / roof.step_s,
+           "device_ms_per_step": dev_ms,
+           "busy_share": dev_ms / step_ms if step_ms else None,
+           "top_kernels_ms": top,
+           "trace_peak_bytes": meta["mem"]["peak_size_in_bytes"],
+           "card_counter_peak_bytes": on_card["mem"]["peak_size_in_bytes"],
+           "max_memory_allocated": peak_card,
+           "argument_bytes": meta["mem"]["argument_size_in_bytes"]}
+    rep["cell"] = out
+    print(f"dry-run cell on the card, {arch} {shape_name} (a rank's "
+          f"{out['rows']} rows, {shape.seq_len}-position bf16 cache, fused "
+          f"MUXQ): counted flops {cost['flops']:.6g}, bytes "
+          f"{cost['bytes accessed']:.6g} (card's count equal: {same_total}); "
+          f"rowwise_quantize / muxq_gemm calls, ops and bytes equal to the "
+          f"meta trace's, launches {counts['rowwise_quantize']} / "
+          f"{counts['muxq_gemm']}; tokens through the kernels equal the "
+          f"plain versions'; step {step_ms:.4f} ms (median of "
+          f"{DRYRUN_STEPS}, spread {min(times):.4f}-{max(times):.4f}) against "
+          f"a roofline step of {roof.step_s * 1e3:.4f} ms "
+          f"({roof.dominant}-bound; {out['ratio']:.2f}x); kernels "
+          f"{dev_ms:.4f} ms a step (profiled), the card busy "
+          f"{(out['busy_share'] or 0) * 100:.1f} % of the step; top kernels "
+          + ", ".join(f"{k} {t:.3f} ms" for k, t in top)
+          + f"; peak device memory {peak_card / 2**30:.3f} GiB against the "
+          f"trace's {out['trace_peak_bytes'] / 2**30:.3f} GiB  [{card}]",
+          flush=True)
+    del step, args, held
+    torch.cuda.empty_cache()
+    return rep, {f"dry-run {arch} {shape_name}": counts}
+
 
 def main() -> int:
     import numpy as np
@@ -3614,7 +3852,13 @@ def main() -> int:
                                        ROOT / "build" / "chip_smoke_dist")
     phases.done("distributed training")
 
-    # -- 20. result lines ---------------------------------------------------------
+    # -- 20. analysis and the dry-run -------------------------------------------
+    report["dryrun"], dry_runs = dryrun_phase(torch, dev, card, qcfg,
+                                              reset_counts, read_counts)
+    main_runs.update(dry_runs)
+    phases.done("analysis and dry-run")
+
+    # -- 21. result lines ---------------------------------------------------------
     pa_src = ("src/repro_torch/csrc/paged_attention.cu",
               "src/repro/kernels/paged_attention.py:161")
     sources = {"rowwise_quantize": ("src/repro_torch/csrc/rowwise_quantize.cu",

@@ -139,6 +139,30 @@ def pack_site_buffer(w, mask: Optional[np.ndarray], cfg, *, bk: int = 512,
     return {f: t.cpu().numpy() for f, t in buf.items()}
 
 
+def abstract_site_buffer(w_shape, n_out: int, *, bk: int = 512,
+                         device="meta") -> Dict[str, torch.Tensor]:
+    """A site's buffer as :func:`buffer_to` lays it out on ``device``,
+    uninitialized: the shapes and dtypes that :func:`pack_site_buffer`
+    gives a weight of ``w_shape`` ([in_ch, out], or [E, in_ch, out]) whose
+    mask holds ``n_out`` outlier channels (``ops.prepare_weights``'s
+    padding).  The dry-run traces on these."""
+    *lead, k, n = w_shape
+    bk = min(bk, k)
+    pad_out = (-n_out) % bk if n_out else 0
+    k_pad = k + pad_out + (-(k + pad_out)) % bk
+    lead = tuple(lead)
+    w_t = torch.empty(lead + (n, k_pad), dtype=torch.int8, device=device)
+    return {"w_int": w_t.transpose(-1, -2),
+            "sw": torch.empty(lead + (1, n), dtype=torch.float32,
+                              device=device),
+            "block_scale": torch.empty(k_pad // bk, dtype=torch.int32,
+                                       device=device),
+            "gather_idx": torch.empty(k_pad, dtype=torch.int32,
+                                      device=device),
+            "in_scale": torch.empty(k_pad, dtype=torch.float32,
+                                    device=device)}
+
+
 def buffer_k_pad(buf) -> int:
     return buf["w_int"].shape[-2]
 
@@ -171,10 +195,13 @@ def buffer_to(buf, device) -> Dict[str, torch.Tensor]:
     one contiguous k-major copy W^T [..., N, K_pad] (the layout
     ``muxq_gemm``'s kernel reads; the plain version reads any layout): a
     per-expert weight [E, K_pad, N] gives each expert a contiguous
-    [N, K_pad] slab.  The transpose runs on ``device``."""
-    out = {f: torch.as_tensor(np.asarray(buf[f])).to(device).contiguous()
-           for f in BUFFER_FIELDS if f != "w_int"}
-    w = torch.as_tensor(np.asarray(buf["w_int"])).to(device)
+    [N, K_pad] slab.  The transpose runs on ``device``.  Fields are numpy
+    arrays or tensors (a tensor already laid out so stays as it is)."""
+    def dev(a):
+        return (a if isinstance(a, torch.Tensor)
+                else torch.as_tensor(np.asarray(a))).to(device)
+    out = {f: dev(buf[f]).contiguous() for f in BUFFER_FIELDS if f != "w_int"}
+    w = dev(buf["w_int"])
     out["w_int"] = w.transpose(-1, -2).contiguous().transpose(-1, -2)
     return {f: out[f] for f in BUFFER_FIELDS}
 

@@ -14,13 +14,13 @@ file); the kernel's C entry plans its own grid (K split across the blocks
 of a thread block cluster) from the shape and the card's SM count.  A CPU
 tensor takes the plain version (any layout); a CUDA tensor
 launches the kernel, or raises — there is no fallback and no copy.
-``LAUNCHES`` counts kernel launches.
+``LAUNCHES`` counts kernel launches; ``accounting`` sees every call.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 LAUNCHES = 0
 
@@ -91,6 +91,13 @@ def _launch(x_int, w_int, block_scale, sx, sw, bk):
 def muxq_gemm(x_int, w_int, block_scale, sx, sw, *, bk: int = 512) -> torch.Tensor:
     """Y = dequant(sum_kb block_scale[kb] * X[:, kb] @ W[kb, :]) in f32:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    (m, k), n = x_int.shape, w_int.shape[1]
+    with accounting.site("muxq_gemm",
+                         lambda: accounting.gemm_cost(m, k, n, bk)):
+        return _run(x_int, w_int, block_scale, sx, sw, bk)
+
+
+def _run(x_int, w_int, block_scale, sx, sw, bk):
     if x_int.is_cuda:
         return _launch(x_int, w_int, block_scale, sx, sw, bk)
     return muxq_gemm_plain(x_int, w_int, block_scale, sx, sw, bk)

@@ -14,7 +14,7 @@ Execution (mirrors ``set_fused_impl``): ``auto`` launches the CUDA kernel
 for CUDA tensors and takes the plain version for CPU tensors; ``ref``
 forces the plain version.  A CUDA tensor never falls back silently.
 ``MODE_LAUNCHES`` counts kernel launches by page mode (their sum is the
-kernel's launch count).
+kernel's launch count); ``accounting`` sees every call.
 
 The kernel's grid is (KV split, row tile, slot x KV head): ``plan_splits``
 cuts a slot's ``sq * g`` query rows into tiles of ``ROW_TILE`` and its page
@@ -28,11 +28,12 @@ whole model gets on one device.
 """
 from __future__ import annotations
 
+import math
 from typing import Literal, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 from repro_torch.serve.kvq import unpack_int4
 
 NEG_INF = -1e9          # matches models/attention.NEG_INF (parity)
@@ -234,10 +235,30 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, pos, *,
     position).  ``plan_kv_heads`` (default: the pages' own KV heads) is
     the head count the kernel's split plan is made for; the plain version
     does not split."""
+    with accounting.site("paged_attention", lambda: _cost(
+            q, page_table, k_pages, v_pages, k_scale, v_scale)):
+        return _run(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
+                    k_redist, v_redist, window, softcap, plan_kv_heads)
+
+
+def _run(q, k_pages, v_pages, page_table, pos, k_scale, v_scale, k_redist,
+         v_redist, window, softcap, plan_kv_heads):
     if _PAGED_IMPL == "ref" or not q.is_cuda:
-        return paged_attention_plain(q, k_pages, v_pages, page_table, pos,
-                                     k_scale=k_scale, v_scale=v_scale,
-                                     k_redist=k_redist, v_redist=v_redist,
-                                     window=window, softcap=softcap)
+        return paged_attention_plain(
+            q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+            v_scale=v_scale, k_redist=k_redist, v_redist=v_redist,
+            window=window, softcap=softcap)
     return _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
                    k_redist, v_redist, window, softcap, plan_kv_heads)
+
+
+def _cost(q, page_table, *pages):
+    """``accounting.paged_cost`` from the shapes alone: every key of the
+    table (its width x the page size), each page array's bytes a key."""
+    b, h, dh = q.shape[0], q.shape[-2], q.shape[-1]
+    sq = 1 if q.dim() == 3 else q.shape[1]
+    keys = page_table.shape[1] * pages[0].shape[1]
+    per_key = sum(math.prod(t.shape[2:]) * t.element_size()
+                  for t in pages if t is not None)
+    return accounting.paged_cost(b, sq, h, dh, q.element_size(), keys,
+                                 per_key)

@@ -8,7 +8,8 @@ before it on the main path (``ops._permute_pad_shift``: ``x[:, gather_idx]
 
 Bound on the H100: bytes (see the source note in the ``.cu`` file).  A CPU
 tensor takes the plain version; a CUDA tensor launches the kernel, or
-raises — there is no fallback.  ``LAUNCHES`` counts kernel launches.
+raises — there is no fallback.  ``LAUNCHES`` counts kernel launches;
+``accounting`` sees every call.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import quantizers as Q
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 LAUNCHES = 0
 
@@ -80,6 +81,14 @@ def rowwise_quantize(x: torch.Tensor, bits: int = 8,
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if (gather_idx is None) != (in_scale is None):
         raise ValueError("pass gather_idx and in_scale together")
+    m, k_in = x.shape[0], x.shape[-1]
+    k_out = k_in if gather_idx is None else gather_idx.shape[0]
+    with accounting.site("rowwise_quantize", lambda: accounting.quantize_cost(
+            m, k_in, k_out, x.element_size(), gather_idx is not None)):
+        return _run(x, bits, gather_idx, in_scale)
+
+
+def _run(x, bits, gather_idx, in_scale):
     if x.is_cuda:
         return _launch(x, bits, gather_idx, in_scale)
     return rowwise_quantize_plain(x, bits, gather_idx, in_scale)

@@ -174,7 +174,10 @@ def moe(cfg: ModelConfig, p: dict, ctx, x: torch.Tensor, *,
 
     # Switch aux loss, global over all groups
     top1 = torch.argmax(probs, dim=-1).reshape(-1)
-    counts = torch.bincount(top1, minlength=e).float()
+    # a scatter of ones, not ``bincount``: the meta device (the dry-run's
+    # trace) has no bincount; counts below 2^24 are exact either way
+    counts = torch.zeros(e, device=x.device).index_add_(
+        0, top1, torch.ones(top1.shape, device=x.device))
     if GS.active():   # a rank's share of the whole batch's aux loss
         n = GS.global_sum(torch.full((), float(g * tg), device=x.device))
         assign_frac = GS.global_sum(counts) / n

@@ -174,9 +174,13 @@ def ssm_decode(cfg: ModelConfig, p_: dict, ctx, x: torch.Tensor,
 
     win_x = torch.cat([state["conv_x"], xc_raw[:, :1]], 1)     # [b, K, di]
     win_bc = torch.cat([state["conv_bc"], bc_raw[:, :1]], 1)
-    xc = (torch.einsum("bkc,kc->bc", win_x, p_["conv_x_w"].to(x.dtype))
+    # an f32 state beside bf16 activations makes the windows f32 (the cat
+    # promotes); the weights follow, as the reference's einsum promotes
+    xc = (torch.einsum("bkc,kc->bc", win_x,
+                       p_["conv_x_w"].to(x.dtype).to(win_x.dtype))
           + p_["conv_x_b"].to(x.dtype))
-    bc = (torch.einsum("bkc,kc->bc", win_bc, p_["conv_bc_w"].to(x.dtype))
+    bc = (torch.einsum("bkc,kc->bc", win_bc,
+                       p_["conv_bc_w"].to(x.dtype).to(win_bc.dtype))
           + p_["conv_bc_b"].to(x.dtype))
     xc = F.silu(xc.float()).to(x.dtype)
     bc = F.silu(bc.float()).to(x.dtype)

@@ -19,10 +19,18 @@ gloo's TCP transport (probed on an H100 with torch 2.11: "writev ... Bad
 address").  Those ops (:data:`HOST_ROUTED`) move the buffer through host
 memory inside the wrappers below, and :data:`HOST_COPIES` counts each
 such buffer; the arithmetic stays on the tensor's device.
+
+Accounting.  Inside :func:`recording`, every transport wrapper appends one
+record ``(kind, result bytes a rank, group size)`` to the list it yields
+(``analysis.hlo.collective_bytes`` prices them): ``all-reduce``,
+``all-gather`` (the gathered result), ``reduce-scatter`` (the scattered
+shard), ``broadcast``, and ``send`` / ``recv`` for the two halves of a
+point-to-point transfer.  Outside it nothing is recorded.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from contextlib import contextmanager
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -33,6 +41,26 @@ HOST_ROUTED = {"gloo": frozenset({"send", "recv"})}
 HOST_COPIES: Dict[str, int] = {"send": 0, "recv": 0}
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+_RECORDS: Optional[List[Tuple[str, int, int]]] = None
+
+
+@contextmanager
+def recording():
+    """Yield a list that receives a record of every transport call made
+    inside the block (an inner block keeps its own)."""
+    global _RECORDS
+    prev, _RECORDS = _RECORDS, []
+    try:
+        yield _RECORDS
+    finally:
+        _RECORDS = prev
+
+
+def _record(kind: str, t: torch.Tensor, group, nbytes=None) -> None:
+    if _RECORDS is not None:
+        _RECORDS.append((kind, t.numel() * t.element_size()
+                         if nbytes is None else nbytes, axis_size(group)))
 
 
 def _routed(op: str, t: torch.Tensor, group) -> bool:
@@ -90,6 +118,7 @@ def subgroup(mesh, names: Sequence[str]):
 
 def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """``t`` reduced over ``group`` in place; returns ``t``."""
+    _record("all-reduce", t, group)
     dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
     return t
 
@@ -97,6 +126,8 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
 def all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
     """Every member's ``t`` (same shape and dtype), in group order."""
     out = [torch.empty_like(t) for _ in range(axis_size(group))]
+    _record("all-gather", t, group,
+            len(out) * t.numel() * t.element_size())
     dist.all_gather(out, t.contiguous(), group=group)
     return out
 
@@ -106,12 +137,14 @@ def reduce_scatter(t: torch.Tensor, group=None) -> torch.Tensor:
     [i*k, (i+1)*k) (the reference's ``psum_scatter(..., tiled=True)``)."""
     n = axis_size(group)
     out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
+    _record("reduce-scatter", out, group)
     dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
     return out
 
 
 def broadcast(t: torch.Tensor, src_index: int, group=None) -> torch.Tensor:
     """``t`` from ``group``'s member ``src_index``, in place."""
+    _record("broadcast", t, group)
     dist.broadcast(t, src=global_rank(group, src_index), group=group)
     return t
 
@@ -134,6 +167,7 @@ class _Pending:
 
 def isend(t: torch.Tensor, dst_index: int, group=None) -> _Pending:
     dst = global_rank(group, dst_index)
+    _record("send", t, group)
     if _routed("send", t, group):
         HOST_COPIES["send"] += 1
         host = t.detach().to("cpu")
@@ -146,6 +180,7 @@ def irecv(like: torch.Tensor, src_index: int, group=None) -> _Pending:
     """Receive a tensor shaped like ``like`` from member ``src_index``."""
     src = global_rank(group, src_index)
     into = torch.empty_like(like, memory_format=torch.contiguous_format)
+    _record("recv", into, group)
     if _routed("recv", into, group):
         HOST_COPIES["recv"] += 1
         host = torch.empty(into.shape, dtype=into.dtype)

@@ -314,9 +314,15 @@ def coordinate(mesh) -> Dict[str, int]:
 
 def local_shard(t: torch.Tensor, spec: Spec, mesh,
                 coord: Optional[Mapping[str, int]] = None) -> torch.Tensor:
-    """This rank's contiguous copy of a full tensor under ``spec``."""
+    """This rank's contiguous copy of a full tensor under ``spec`` (a
+    copy even where the part is a contiguous view, which would keep the
+    whole tensor's storage alive; a replicated leaf is the tensor itself,
+    made contiguous)."""
     coord = coordinate(mesh) if coord is None else coord
-    return t[shard_slices(t.shape, spec, mesh, coord)].contiguous()
+    part = t[shard_slices(t.shape, spec, mesh, coord)]
+    if part.numel() == t.numel():
+        return part.contiguous()
+    return part.clone(memory_format=torch.contiguous_format)
 
 
 def as_dtensor(local: torch.Tensor, spec: Spec, mesh, shape, stride=None):

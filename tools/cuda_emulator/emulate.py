@@ -196,6 +196,7 @@ def smoke() -> int:
     torch.cuda.empty_cache = lambda: None
     torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
     torch.cuda.max_memory_allocated = lambda *a, **k: 0
+    torch.cuda.memory_allocated = lambda *a, **k: 0
     torch.cuda.get_device_name = lambda *a: "cpu (emulated kernels)"
     torch.cuda.device_count = lambda: 1
     kbuild.build = lambda *a, **k: {}
@@ -208,6 +209,7 @@ def smoke() -> int:
     import chip_smoke_emulated as ns
     ns.time_ms = lambda torch, fn, flush, iters=20: (fn(), (0.0, (0.0, 0.0)))[1]
     ns.call_ms = lambda torch, fn, iters=50: 0.0
+    ns.event_times = lambda torch, fn, n: [(fn(), 0.0)[1]]
     ns.smi_line = lambda: "cpu (emulated kernels), 0 W"
     with patch():
         return ns.main()
@@ -217,35 +219,43 @@ def route_wrappers() -> None:
     """Point the kernels' wrappers at their ``_launch`` for CPU tensors,
     where they would take the plain versions (the GEMM's plain version
     where reduced qwen2's 56-wide K-blocks are narrower than its K tile);
-    with :func:`patch` entered, the launches run in emulation."""
+    with :func:`patch` entered, the launches run in emulation.  The entry
+    points stay as they are (their accounting included): only the device
+    choice inside them (``_run``) is replaced, and a tensor on another
+    device (the dry-run's meta tensors) keeps the plain path."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import muxq_gemm as G
-    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import quantize as RQ
 
-    def paged(q, *args, plan_kv_heads=None, **kw):
+    def paged(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
+              k_redist, v_redist, window, softcap, plan_kv_heads):
         if PA._PAGED_IMPL == "ref":
-            return PA.paged_attention_plain(q, *args, **kw)
-        return PA._launch(q, *args, kw.get("k_scale"), kw.get("v_scale"),
-                          kw.get("k_redist"), kw.get("v_redist"),
-                          kw.get("window"), kw.get("softcap"), plan_kv_heads)
+            return PA.paged_attention_plain(
+                q, k_pages, v_pages, page_table, pos, k_scale=k_scale,
+                v_scale=v_scale, k_redist=k_redist, v_redist=v_redist,
+                window=window, softcap=softcap)
+        return PA._launch(q, k_pages, v_pages, page_table, pos, k_scale,
+                          v_scale, k_redist, v_redist, window, softcap,
+                          plan_kv_heads)
 
     def flash(q, k, v, *, causal=True, window=None, softcap=None):
         return FA._launch(q, k, v, causal, window, softcap)
 
-    def quantize(x, bits=8, gather_idx=None, in_scale=None):
-        return RQ._launch(x, bits, gather_idx, in_scale)
-
-    def gemm(x_int, w_int, block_scale, sx, sw, *, bk=512):
+    def gemm(x_int, w_int, block_scale, sx, sw, bk):
         if bk % G._BK_TILE:     # reduced qwen2: K-blocks of 56 channels
             G.LAUNCHES += 1
             return G.muxq_gemm_plain(x_int, w_int, block_scale, sx, sw, bk)
         return G._launch(x_int, w_int, block_scale, sx, sw, bk)
 
-    PA.paged_attention_decode, FA.flash_attention = paged, flash
-    RQ.rowwise_quantize = ops.rowwise_quantize = quantize
-    G.muxq_gemm = ops.muxq_gemm = gemm
+    def on_cpu(launch, plain):
+        return lambda x, *a: (launch if x.device.type == "cpu" else plain)(
+            x, *a)
+
+    PA._run = on_cpu(paged, PA._run)
+    RQ._run = on_cpu(RQ._launch, RQ._run)
+    G._run = on_cpu(gemm, G._run)
+    FA.flash_attention = flash
 
 
 if __name__ == "__main__":
