@@ -16,7 +16,9 @@ Lifecycle model (pid = request, tid = phase):
 
 Scheduler-wide records ride pid ``SCHED_RID`` (= -1): one ``STEP`` instant
 per active step (slots decoded, prefill slot + chunk bucket, page-budget
-bucket, spec verify k, COW copies) and a ``COMPILE`` instant every time a
+bucket, spec verify k, COW copies, and ``host_ms``: the host's time since
+the previous ``STEP`` cut into :data:`HOST_PHASES`, see
+:class:`StepPhases`) and a ``COMPILE`` instant every time a
 ``decode_traces`` / ``prefill_traces`` / ``verify_traces`` counter grows
 (in the port: the first step call of a new bucket key, see
 ``repro_torch.serve.engine``).
@@ -24,7 +26,9 @@ bucket, spec verify k, COW copies) and a ``COMPILE`` instant every time a
 Two consumers:
 
   * :meth:`TraceRecorder.export_chrome` — Chrome-trace / Perfetto JSON
-    (load in https://ui.perfetto.dev or chrome://tracing);
+    (load in https://ui.perfetto.dev or chrome://tracing), on the Unix
+    clock's axis through ``otherData.epoch_unix_ns``, as a
+    ``torch.profiler`` trace is;
   * :meth:`TraceRecorder.events` — the plain event list the tests assert
     span-ordering invariants on (:func:`lifecycle_errors`).
 
@@ -42,6 +46,9 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+from torch._C._profiler import _RecordFunctionFast
+
 SCHED_RID = -1                       # the scheduler's pseudo-request id
 
 # phase -> chrome tid (stable small ints so exported traces line up per pid)
@@ -50,6 +57,14 @@ TIDS = {p: i + 1 for i, p in enumerate(PHASES)}
 
 # span phases a request moves through; instants ride their current phase
 SPAN_PHASES = ("QUEUED", "PREFILLING", "DECODING")
+
+# the host's phases of one scheduler step, in the order they run (see
+# StepPhases), and the scheduler's export thread that lays them out
+HOST_PHASES = ("tail", "admit", "prefill_build", "prefill_enqueue",
+               "prefill_readback", "prefill_post", "pages",
+               "decode_enqueue", "decode_readback", "decode_post",
+               "verify_enqueue", "verify_readback", "verify_post")
+HOST_TID = len(PHASES) + 1
 
 
 class NullRecorder:
@@ -87,6 +102,66 @@ class NullRecorder:
 NULL_RECORDER = NullRecorder()
 
 
+class StepPhases:
+    """The host's clock over the scheduler's steps, cut into
+    :data:`HOST_PHASES` with no gap and no overlap.
+
+    ``mark(name)`` ends the running phase and starts ``name``;
+    :meth:`close` ends the step, returns ``{phase: ms}`` of the phases that
+    ran (the ``STEP`` record's ``host_ms``) and starts the next step's
+    ``tail``, which holds the record call itself.  While a profiler runs,
+    each phase is also a ``serve/<phase>`` range on the profiler's host
+    timeline; whether one runs is read once a step, in :meth:`open`, after
+    the record call (where a profile starts or stops), so the record call
+    lies between two ranges.  Without a profiler no range is entered.
+
+    The ranges are function-scope record functions, not
+    ``torch.profiler.record_function``'s user scope: the CUDA profiler
+    mirrors a user-scope range as a device-side annotation over the
+    kernels it launched, which a device trace would count as busy time.
+    """
+
+    def __init__(self):
+        self._t = time.perf_counter()
+        self._name = "tail"
+        self._ms: Dict[str, float] = {}
+        self._range = None
+        self.open()
+
+    def _add(self, t: float) -> None:
+        ms = self._ms
+        ms[self._name] = ms.get(self._name, 0.0) + 1e3 * (t - self._t)
+        self._t = t
+
+    def open(self) -> None:
+        """Start the step's ranges if a profiler is running."""
+        if torch._C._autograd._profiler_enabled():
+            self._range = _RecordFunctionFast("serve/" + self._name)
+            self._range.__enter__()
+
+    def mark(self, name: str) -> None:
+        # nothing but the clock read lies between one range's end and the
+        # next one's start, so a range and its phase share their edges
+        nxt = (None if self._range is None
+               else _RecordFunctionFast("serve/" + name))
+        if nxt is not None:
+            self._range.__exit__(None, None, None)
+        t = time.perf_counter()
+        if nxt is not None:
+            nxt.__enter__()
+            self._range = nxt
+        self._add(t)
+        self._name = name
+
+    def close(self) -> Dict[str, float]:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        self._add(time.perf_counter())
+        ms, self._ms, self._name = self._ms, {}, "tail"
+        return ms
+
+
 class TraceRecorder:
     """Ring-buffered host-side event recorder (see module docstring)."""
 
@@ -97,21 +172,24 @@ class TraceRecorder:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = capacity
         self._events = collections.deque(maxlen=capacity)
+        # the wall clock's epoch, and the same instant in Unix nanoseconds
+        # (the axis of torch.profiler's traces)
         self._epoch = time.perf_counter()
+        self.epoch_unix_ns = time.time_ns()
         self.dropped = 0
         self.metadata: Dict[str, object] = {}
 
     # -- recording -----------------------------------------------------------
 
     def _push(self, kind, rid, phase, name, step, args) -> None:
+        wall = time.perf_counter() - self._epoch    # before any allocation
         if phase not in TIDS:
             raise ValueError(f"unknown phase {phase!r} (one of {PHASES})")
         if len(self._events) == self.capacity:
             self.dropped += 1
         self._events.append({
             "kind": kind, "rid": int(rid), "phase": phase, "name": name,
-            "step": None if step is None else int(step),
-            "wall": time.perf_counter() - self._epoch,
+            "step": None if step is None else int(step), "wall": wall,
             "args": args,
         })
 
@@ -171,8 +249,11 @@ class TraceRecorder:
     def export_chrome(self, path) -> Path:
         """Write Chrome-trace / Perfetto JSON.  pid = request (rid + 1, so
         the scheduler's pseudo-request lands on pid 0), tid = phase.  ``ts``
-        is wall-clock microseconds since the recorder's epoch; the step
-        clock rides every event's args as ``step``."""
+        is wall-clock microseconds since the recorder's epoch, which
+        ``otherData.epoch_unix_ns`` places on the Unix clock; the step
+        clock rides every event's args as ``step``.  A ``STEP`` record's
+        ``host_ms`` becomes complete events on the scheduler's ``HOST``
+        thread, end to end, the last ending at the record."""
         events = []
         pids_seen, tids_seen = set(), set()
         for ev in self._events:
@@ -180,6 +261,7 @@ class TraceRecorder:
             pids_seen.add((pid, ev["rid"]))
             tids_seen.add((pid, tid, ev["phase"]))
             args = dict(ev["args"])
+            host = args.pop("host_ms", None) if ev["name"] == "STEP" else None
             if ev["step"] is not None:
                 args["step"] = ev["step"]
             rec = {"name": ev["name"], "ph": ev["kind"],
@@ -189,6 +271,15 @@ class TraceRecorder:
                 rec["ph"] = "i"
                 rec["s"] = "t"          # thread-scoped instant
             events.append(rec)
+            if host:
+                tids_seen.add((pid, HOST_TID, "HOST"))
+                t = ev["wall"] * 1e6 - 1e3 * sum(host.values())
+                for name, ms in host.items():
+                    events.append({"name": name, "ph": "X", "pid": pid,
+                                   "tid": HOST_TID, "ts": round(t, 3),
+                                   "dur": round(1e3 * ms, 3),
+                                   "args": {"step": ev["step"]}})
+                    t += 1e3 * ms
         meta = [{"name": "process_name", "ph": "M", "pid": pid,
                  "args": {"name": "scheduler" if rid == SCHED_RID
                           else f"request-{rid}"}}
@@ -204,7 +295,8 @@ class TraceRecorder:
                      for pid, _rid in sorted(pids_seen)]
         doc = {"traceEvents": meta + events, "displayTimeUnit": "ms",
                "otherData": dict(self.metadata,
-                                 dropped_events=self.dropped)}
+                                 dropped_events=self.dropped,
+                                 epoch_unix_ns=self.epoch_unix_ns)}
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(doc) + "\n")

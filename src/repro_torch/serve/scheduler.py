@@ -26,7 +26,11 @@ The scheduler's state is host-side numpy; device tensors are built only
 at the step call sites.  The flight recorder (``recorder=``) and the
 quality observer's pool sampling (``quality=``) run host-side between
 step calls, at the reference's hook sites: every hook that would build
-an args dict is guarded by ``recorder.enabled``.
+an args dict is guarded by ``recorder.enabled``.  With a recorder, the
+host's time is cut into phases at the step's boundaries
+(:class:`repro_torch.obs.trace.StepPhases`): each ``STEP`` record carries
+them as ``host_ms``, and a running profiler sees them as ``serve/<phase>``
+ranges.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import tokenizer as tok
-from repro_torch.obs.trace import NULL_RECORDER
+from repro_torch.obs.trace import NULL_RECORDER, StepPhases
 from repro_torch.serve import spec
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.pool import PagePool, bucket_pow2
@@ -101,6 +105,7 @@ class Scheduler:
         # off, every hook an immediate no-op; all recording is host-side,
         # between step calls
         self.rec = recorder if recorder is not None else NULL_RECORDER
+        self._ph: Optional[StepPhases] = None    # the step's host phases
         self.quality = quality       # optional repro_torch.obs.quality observer
         self._rids: dict = {}        # id(request) -> trace rid (submit order)
         self.prefix_sharing = prefix_sharing
@@ -162,6 +167,7 @@ class Scheduler:
             _QEntry(req, int(arr)) for req, arr in
             sorted(zip(requests, arrivals), key=lambda p: p[1]))
         m.submitted += len(requests)
+        self._ph = StepPhases() if self.rec.enabled else None
         try:
             self._run_loop(queue, 0)
         except BaseException:
@@ -176,12 +182,17 @@ class Scheduler:
                     self.pool.drop_detached(e.resume[0])
                     e.resume = None
             raise
+        finally:
+            if self._ph is not None:
+                self._ph.close()        # leaves no profiler range open
         m.stop()
         return list(requests)
 
     def _run_loop(self, queue, step_clock: int) -> None:
-        m, rec = self.metrics, self.rec
+        m, rec, ph = self.metrics, self.rec, self._ph
         while queue or any(self.slots):
+            if ph is not None:
+                ph.mark("admit")
             self._step = step_clock
             now = None
             for entry in queue:
@@ -198,6 +209,8 @@ class Scheduler:
             m.live_slots_peak = max(
                 m.live_slots_peak, sum(s is not None for s in self.slots))
             if not any(self.slots):
+                if ph is not None:
+                    ph.mark("tail")
                 if queue:
                     step_clock += 1
                     continue
@@ -207,6 +220,8 @@ class Scheduler:
             # the step-record info of the chunks that ran (slots and
             # buckets), or None
             did_prefill = self._prefill_chunk_step(step_clock)
+            if ph is not None:
+                ph.mark("pages")
             # n-gram drafts first (host-side, no pool effects), so the
             # page-backing pass can cover each slot's whole k-token write
             drafts = (self._propose_drafts()
@@ -239,11 +254,17 @@ class Scheduler:
                                                  bucket, did_prefill,
                                                  step_clock)
                 else:
+                    if ph is not None:
+                        ph.mark("decode_enqueue")
                     nxt, new_kv = self.decode(
                         self._dev(self.last_tok)[:, None], self.pool.state(),
                         table, self._dev(self.pos))
+                    if ph is not None:
+                        ph.mark("decode_readback")
                     self.pool.adopt(new_kv)
                     outs = nxt.cpu().numpy()
+                    if ph is not None:
+                        ph.mark("decode_post")
                     m.decode_steps += 1
                     m.decode_slot_steps += len(active)
                     m.record_read(self.pool, bucket)
@@ -268,7 +289,8 @@ class Scheduler:
                     prefill_slot=pf_slots[0] if pf_slots else None,
                     chunk_bucket=pf.get("chunk_bucket", 0),
                     prefill_page_bucket=pf.get("page_bucket", 0),
-                    cow=self.pool.cow_count - cow0)
+                    cow=self.pool.cow_count - cow0, host_ms=ph.close())
+                ph.open()
             if self.quality is not None:
                 self.quality.maybe_sample_pool(self.pool, step_clock)
             step_clock += 1
@@ -445,6 +467,9 @@ class Scheduler:
                  if s is not None and s.prefilling]
         if not cands:
             return None
+        ph = self._ph
+        if ph is not None:
+            ph.mark("prefill_build")
         chosen = self._prefill_pick(cands, step_clock)
         m = self.metrics
         m.prefill_wait_steps_max = max(
@@ -472,11 +497,17 @@ class Scheduler:
             start[j] = done
             w_lo[j] = max(done, st.write_from)
             w_hi[j] = min(done + n, len(st.ids))
-        nxt, new_kv = self.prefill(
-            self._dev(toks), self.pool.state(), self._dev(tab),
-            self._dev(start), self._dev(w_lo), self._dev(w_hi))
+        args = (self._dev(toks), self.pool.state(), self._dev(tab),
+                self._dev(start), self._dev(w_lo), self._dev(w_hi))
+        if ph is not None:
+            ph.mark("prefill_enqueue")
+        nxt, new_kv = self.prefill(*args)
+        if ph is not None:
+            ph.mark("prefill_readback")
         self.pool.adopt(new_kv)
         outs = nxt.cpu().numpy()
+        if ph is not None:
+            ph.mark("prefill_post")
         m.prefill_steps += 1
         if len(ns) > 1:
             m.prefill_multi_steps += 1
@@ -576,11 +607,18 @@ class Scheduler:
             if d:
                 toks[i, 1:1 + len(d)] = d
             n_valid[i] = 1 + len(d)
+        ph = self._ph
+        if ph is not None:
+            ph.mark("verify_enqueue")
         nxt, new_kv = self.verify(
             self._dev(toks), self.pool.state(), table, self._dev(self.pos),
             self._dev(n_valid))
+        if ph is not None:
+            ph.mark("verify_readback")
         self.pool.adopt(new_kv)
         outs = nxt.cpu().numpy()                # [n_slots, kb]
+        if ph is not None:
+            ph.mark("verify_post")
         m.decode_steps += 1
         m.decode_slot_steps += len(active)
         m.spec_verify_steps += 1

@@ -257,9 +257,11 @@ def test_trace_and_obs_flags_reach_engine(stubbed, tmp_path, monkeypatch):
 
 def test_real_cpu_run_with_trace_and_obs(tmp_path, capsys):
     """A real traced, observed run: the Chrome trace is well formed, its
-    lifecycle is, every request finished in it, and the quality snapshot
-    of the int8 pool lands in --json-out."""
-    from repro_torch.obs.trace import chrome_errors, lifecycle_errors
+    lifecycle is, every request finished in it, the scheduler's host
+    phases lie on its HOST thread, and the quality snapshot of the int8
+    pool lands in --json-out."""
+    from repro_torch.obs.trace import (HOST_PHASES, HOST_TID, chrome_errors,
+                                       lifecycle_errors)
 
     trace, report = tmp_path / "trace.json", tmp_path / "serve.json"
     assert L.main(["--quant", "muxq", "--backend", "fused", "--device", "cpu",
@@ -276,12 +278,15 @@ def test_real_cpu_run_with_trace_and_obs(tmp_path, capsys):
     assert q["pool_samples"] >= 1
     assert set(q["sites"]) == {"kv/k", "kv/v"}     # no eager site in serving
     assert q["sites"]["kv/k"]["elements"] > 0
+    host = [e for e in evs if e["ph"] == "X"]
+    assert host and all(e["tid"] == HOST_TID and e["name"] in HOST_PHASES
+                        for e in host)
     # the events as the recorder holds them obey the lifecycle invariants
     ph = {"B": "B", "E": "E", "i": "I"}
     events = [{"kind": ph[e["ph"]], "rid": e["pid"] - 1, "name": e["name"],
                "phase": e["name"] if e["ph"] in "BE" else None,
                "step": e["args"].get("step"), "args": e["args"]}
-              for e in evs if e["ph"] != "M"]
+              for e in evs if e["ph"] not in "MX"]
     assert lifecycle_errors(events,
                             decode_steps=doc["report"]["decode_steps"]) == []
 

@@ -7,16 +7,22 @@ both engines the same weights and requests, at f32 (fp pages in f32, or
 the reference-written fused-MUXQ bundle on int8 pages), and hold:
 
   * the recorders' event lists equal in kind, rid, phase, name, step and
-    args (the wall clock left out), ``COMPILE`` events included: the
+    args (the wall clock and the ``STEP`` records' ``host_ms`` left out:
+    both read the host clock), ``COMPILE`` events included: the
     port's ``*_traces`` counters are the first use of a bucket key, the
     reference's are jit traces;
   * the streams with and without the recorder identical;
   * the quality snapshots equal in every count, and in ``amax`` within
     1e-6 relative (f32 scales; the int8 codes are bit-equal);
-  * no activation observed inside the engine's three step calls.
+  * no activation observed inside the engine's three step calls;
+  * the port's own host phases (``host_ms``): they cut the time between
+    two ``STEP`` records with no gap, and under a profiler they are
+    ``serve/<phase>`` ranges on the same clock; without a recorder none is
+    stamped or entered.
 
 The port runs on CPU tensors, i.e. through the kernels' plain versions.
 """
+import gc
 import json
 
 import jax
@@ -45,8 +51,9 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import transformer as T
 from repro_torch.obs import trace as OT
 from repro_torch.obs.quality import QualityObserver
-from repro_torch.obs.trace import (NULL_RECORDER, SCHED_RID, TraceRecorder,
-                                   chrome_errors, lifecycle_errors)
+from repro_torch.obs.trace import (HOST_PHASES, HOST_TID, NULL_RECORDER,
+                                   SCHED_RID, TraceRecorder, chrome_errors,
+                                   lifecycle_errors)
 from repro_torch.quantize import QuantArtifact
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.pool import PagePool
@@ -123,7 +130,29 @@ def test_export_chrome_well_formed(tmp_path):
     assert first["ph"] == "i" and first["s"] == "t"
     assert first["args"]["step"] == 2   # step clock rides args
     assert doc["otherData"] == {"mesh_devices": 1, "kv_shards": 1,
-                                "dropped_events": 0}
+                                "dropped_events": 0,
+                                "epoch_unix_ns": rec.epoch_unix_ns}
+
+
+def test_export_chrome_lays_out_host_phases(tmp_path):
+    rec = TraceRecorder()
+    host = {"tail": 1.5, "admit": 0.25, "decode_enqueue": 2.0}
+    rec.step_record(4, decode_ran=True, host_ms=host)
+    path = rec.export_chrome(tmp_path / "t.json")
+    assert chrome_errors(path) == []
+    doc = json.loads(path.read_text())
+    step = next(e for e in doc["traceEvents"] if e["name"] == "STEP")
+    assert step["args"] == {"decode_ran": True, "step": 4}
+    xs = [e for e in doc["traceEvents"] if e.get("tid") == HOST_TID
+          and e["ph"] == "X"]
+    assert [(e["name"], e["dur"], e["pid"], e["args"]) for e in xs] == [
+        (k, 1e3 * v, 0, {"step": 4}) for k, v in host.items()]
+    # end to end, the last ending at the record
+    for a, b in zip(xs, xs[1:]):
+        assert b["ts"] == pytest.approx(a["ts"] + a["dur"], abs=1e-3)
+    assert xs[-1]["ts"] + xs[-1]["dur"] == pytest.approx(step["ts"], abs=1e-3)
+    assert {"name": "thread_name", "ph": "M", "pid": 0, "tid": HOST_TID,
+            "args": {"name": "HOST"}} in doc["traceEvents"]
 
 
 def test_chrome_errors_flags_unknown_pid_and_tid(tmp_path):
@@ -455,13 +484,14 @@ def traced(request, fused_model):
 
 
 def _plain(events):
-    """Events without the wall clock, args as plain Python values."""
+    """Events without the wall clock and the STEP records' host phases,
+    args as plain Python values."""
     def py(v):
         if isinstance(v, (list, tuple)):
             return [py(x) for x in v]
         return v.item() if hasattr(v, "item") else v
-    return [{k: ({a: py(b) for a, b in ev["args"].items()} if k == "args"
-                 else ev[k])
+    return [{k: ({a: py(b) for a, b in ev["args"].items() if a != "host_ms"}
+                 if k == "args" else ev[k])
              for k in ("kind", "rid", "phase", "name", "step", "args")}
             for ev in events]
 
@@ -505,9 +535,14 @@ def test_traced_run_chrome_export(traced, tmp_path):
     path = traced["rec"].export_chrome(tmp_path / "serve.json")
     assert chrome_errors(path) == []
     jpath = traced["jrec"].export_chrome(tmp_path / "jserve.json")
+    # the host phases' thread is the port's own: it reads the host clock
     strip = lambda doc: [{k: v for k, v in e.items() if k != "ts"}
-                         for e in json.loads(doc.read_text())["traceEvents"]]
+                         for e in json.loads(doc.read_text())["traceEvents"]
+                         if not (e["pid"] == 0 and e.get("tid") == HOST_TID)]
     assert strip(path) == strip(jpath)
+    host = [e for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("tid") == HOST_TID]
+    assert {e["ph"] for e in host} == {"M", "X"}
 
 
 def test_traced_run_compile_events(traced):
@@ -533,6 +568,142 @@ def test_quality_snapshots_match_reference(traced):
 def test_engine_default_recorder_is_null(traced):
     assert traced["off"].recorder is NULL_RECORDER
     assert traced["off"].recorder.events == []
+
+
+# ---------------------------------------------------------------------------
+# the host phases of a scheduler step (the port's own; no reference)
+# ---------------------------------------------------------------------------
+
+def _step_records(events):
+    return [e for e in events if e["rid"] == SCHED_RID and e["name"] == "STEP"]
+
+
+def test_every_step_record_carries_host_phases(traced):
+    steps = _step_records(traced["rec"].events)
+    assert steps
+    for e in steps:
+        host = e["args"]["host_ms"]
+        assert host and set(host) <= set(HOST_PHASES)
+        assert [p for p in HOST_PHASES if p in host] == list(host)
+        assert all(ms >= 0 for ms in host.values())
+        assert ("decode_enqueue" in host) + ("verify_enqueue" in host) == int(
+            e["args"]["decode_ran"])
+        assert ("prefill_enqueue" in host) == bool(e["args"]["prefill_slots"])
+    seen = set().union(*(e["args"]["host_ms"] for e in steps))
+    assert {"tail", "admit", "prefill_build", "prefill_enqueue",
+            "prefill_readback", "prefill_post", "pages"} <= seen
+    if traced["scenario"] == "fp_spec_preempt":
+        assert {"verify_enqueue", "verify_readback", "verify_post"} <= seen
+
+
+def test_host_phases_cut_the_time_between_step_records(traced):
+    steps = _step_records(traced["rec"].events)
+    for a, b in zip(steps, steps[1:]):
+        gap = 1e3 * (b["wall"] - a["wall"])
+        total = sum(b["args"]["host_ms"].values())
+        assert abs(total - gap) <= max(1.0, 0.02 * gap), (b["step"], total, gap)
+
+
+class _StampsMembers:
+    """A recorder with only the members the benchmark's stand-in for the
+    recorder has (``perfbench/pbench/stamps.py``)."""
+    enabled = True
+
+    def __init__(self):
+        self.steps = []
+
+    def begin(self, rid, phase, step, **args):
+        pass
+
+    def end(self, rid, phase, step, **args):
+        pass
+
+    def instant(self, rid, phase, name, step, **args):
+        pass
+
+    def step_record(self, step, **args):
+        self.steps.append(args)
+
+    def compile_event(self, kind, **args):
+        pass
+
+    def set_metadata(self, **kw):
+        pass
+
+
+def test_a_recorder_of_the_benchmarks_members_drives_a_run(fused_model):
+    rec = _StampsMembers()
+    eng, reqs = _drive("fp_spec_preempt", fused_model, True, rec)
+    assert rec.steps and all(s["host_ms"] for s in rec.steps)
+
+
+def test_no_recorder_stamps_and_enters_nothing(fused_model, monkeypatch):
+    from repro_torch.serve import scheduler as S
+
+    def boom(*a, **k):
+        raise AssertionError("stamped or entered a range without a recorder")
+    monkeypatch.setattr(OT, "_RecordFunctionFast", boom)
+    monkeypatch.setattr(S, "StepPhases", boom)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        eng, reqs = _drive("fp_spec_preempt", fused_model, True)
+    assert eng.recorder is NULL_RECORDER and eng.metrics.decode_steps > 0
+
+
+@pytest.fixture(scope="module", params=sorted(SCENARIOS))
+def profiled(request, fused_model):
+    """A traced run under a CPU profile: the recorder, and the profiler's
+    serve/* ranges (phase, Unix ns start, ms), none a user annotation."""
+    # as the benchmark runs: one thread, and the objects made so far
+    # frozen, so that a collection pauses no step for long
+    rec, threads = TraceRecorder(), torch.get_num_threads()
+    torch.set_num_threads(1)
+    gc.collect()
+    gc.freeze()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            _drive(request.param, fused_model, True, rec)
+    finally:
+        gc.unfreeze()
+        torch.set_num_threads(threads)
+    t0 = prof.profiler.kineto_results.trace_start_ns()
+    serve = [e for e in prof.events() if e.name.startswith("serve/")]
+    # a user annotation would be mirrored on the device's timeline
+    assert not any(e.is_user_annotation for e in serve)
+    ranges = [(e.name[len("serve/"):], t0 + 1e3 * e.time_range.start,
+               1e-3 * e.time_range.elapsed_us()) for e in serve]
+    return rec, sorted(ranges, key=lambda r: r[1])
+
+
+def _phase_windows(rec):
+    """(step record, its host_ms, Unix ns at the previous record's wall)."""
+    to_unix = lambda wall: rec.epoch_unix_ns + 1e9 * wall
+    steps = _step_records(rec.events)
+    prev = [-float("inf")] + [to_unix(e["wall"]) for e in steps[:-1]]
+    return [(e, e["args"]["host_ms"], lo, to_unix(e["wall"]))
+            for e, lo in zip(steps, prev)]
+
+
+def test_profiler_ranges_are_the_host_phases(profiled):
+    rec, ranges = profiled
+    assert {name for name, _, _ in ranges} <= set(HOST_PHASES)
+    for e, host, lo, hi in _phase_windows(rec):
+        for phase, ms in host.items():
+            took = sum(d for name, t, d in ranges
+                       if name == phase and lo < t <= hi)
+            assert took == pytest.approx(ms, abs=1.0), (e["step"], phase)
+
+
+def test_profiler_ranges_fall_on_the_recorders_clock(profiled):
+    rec, ranges = profiled
+    for e, host, lo, hi in _phase_windows(rec):
+        start = hi - 1e6 * sum(host.values())     # the step's first phase
+        for phase, ms in host.items():
+            first = min(t for name, t, _ in ranges
+                        if name == phase and lo < t <= hi)
+            assert abs(first - start) <= 2e6, (e["step"], phase)
+            start += 1e6 * ms
 
 
 # ---------------------------------------------------------------------------
