@@ -79,7 +79,7 @@ def main(argv=None) -> int:
     ap.add_argument("--prefill-slots", type=int, default=2,
                     help="prefilling slots advanced per step: up to this "
                          "many slots run one chunk each, batched into one "
-                         "prefill call at the full pool width")
+                         "prefill call of one row per advancing slot")
     ap.add_argument("--prefill-aging", type=float, default=1.0,
                     help="anti-starvation credit for the chunk picker: "
                          "remaining-token equivalents forgiven per step a "

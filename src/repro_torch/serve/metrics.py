@@ -31,6 +31,8 @@ _COUNTERS = (
                            # call count N — the pre-multi-slot meaning)
     "prefill_chunk_tokens",  # valid prompt tokens prefilled via chunks
     "prefill_steps",       # traced multi-slot prefill invocations (<= chunks)
+    "prefill_computed_tokens",  # rows x chunk bucket over prefill calls:
+                                # the token positions the model computed
     "prefill_multi_steps",  # prefill steps advancing >= 2 slots at once
     "prefill_resumes",     # mid-prefill preemptions resumed from the true
                            # chunk boundary (kept pages, zero chunks re-run)
@@ -191,6 +193,11 @@ class ServeMetrics:
             "prefill_multi_steps": self.prefill_multi_steps,
             "prefill_batch_mean": (self.prefill_chunks / self.prefill_steps
                                    if self.prefill_steps else 0.0),
+            # share of the computed prefill positions that carried a token
+            "prefill_computed_tokens": self.prefill_computed_tokens,
+            "prefill_row_use": (self.prefill_chunk_tokens
+                                / self.prefill_computed_tokens
+                                if self.prefill_computed_tokens else 0.0),
             "prefill_resumes": self.prefill_resumes,
             "prefill_wait_steps_max": self.prefill_wait_steps_max,
             "interleaved_steps": self.interleaved_steps,

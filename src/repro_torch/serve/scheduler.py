@@ -6,9 +6,10 @@ token streams and step counters match the reference engine's.
     same refcounted pages);
   * multi-slot chunked paged prefill, interleaved with the pooled decode:
     each step advances up to ``prefill_slots`` prefilling slots by one
-    ``prefill_chunk``-token chunk each in ONE call at the full pool width
-    (idle rows carry zeroed table rows and empty write windows), picked
-    shortest-remaining-first with an aging credit;
+    ``prefill_chunk``-token chunk each in ONE call over one row per
+    advancing slot (in ascending slot order; each row carries its own page
+    table, start and write window), picked shortest-remaining-first with
+    an aging credit;
   * one decode call per step for the whole pool with a per-slot position
     vector, reading only the bucketed page budget of the longest live
     sequence (chunk and page budgets bucket to powers of two);
@@ -80,8 +81,9 @@ class _QEntry:
 class Scheduler:
     """Drives a request set to completion against one :class:`PagePool`.
 
-    ``prefill_fn(tokens [n_slots, C], kv, page_table [n_slots, pb], start,
-    write_lo, write_hi) -> (next_tokens [n_slots, C], kv)`` and
+    ``prefill_fn(tokens [rows, C], kv, page_table [rows, pb], start,
+    write_lo, write_hi) -> (next_tokens [rows, C], kv)``, where the rows are
+    the slots that advance a chunk this step, in ascending slot order, and
     ``decode_fn(tokens [n_slots, 1], kv, page_table, pos) ->
     (next_tokens [n_slots], kv)`` and ``verify_fn(tokens [n_slots, k], kv,
     page_table, pos, n_valid) -> (next_tokens [n_slots, k], kv)`` (needed
@@ -460,9 +462,9 @@ class Scheduler:
 
     def _prefill_chunk_step(self, step_clock: int) -> Optional[dict]:
         """Advance up to ``prefill_slots`` prefilling slots by one bucketed
-        chunk each, in ONE call over a full-pool-width ``[n_slots, C]``
-        block.  Returns the step-record info (slots and buckets) when
-        chunks ran, else None."""
+        chunk each, in ONE call over a ``[rows, C]`` block: one row per
+        advancing slot, in ascending slot order (no idle rows).  Returns the
+        step-record info (slots and buckets) when chunks ran, else None."""
         cands = [i for i, s in enumerate(self.slots)
                  if s is not None and s.prefilling]
         if not cands:
@@ -483,20 +485,19 @@ class Scheduler:
         ps = self.pool.page_size
         pb = self.pool.bucket_pages(max(
             math.ceil((self.slots[j].pre_pos + cb) / ps) for j in chosen))
-        n_slots = self.pool.n_slots
-        toks = np.zeros((n_slots, cb), np.int32)
-        start = np.zeros(n_slots, np.int32)
-        w_lo = np.zeros(n_slots, np.int32)
-        w_hi = np.zeros(n_slots, np.int32)
-        tab = np.zeros((n_slots, pb), np.int32)
-        for j, n in ns.items():
-            st = self.slots[j]
+        rows = sorted(ns)               # row r carries slot rows[r]
+        toks = np.zeros((len(rows), cb), np.int32)
+        start = np.zeros(len(rows), np.int32)
+        w_lo = np.zeros(len(rows), np.int32)
+        w_hi = np.zeros(len(rows), np.int32)
+        tab = self.pool.page_table[rows, :pb]
+        for r, j in enumerate(rows):
+            st, n = self.slots[j], ns[j]
             done = st.pre_pos
-            toks[j, :n] = st.ids[done:done + n]
-            tab[j] = self.pool.page_table[j, :pb]
-            start[j] = done
-            w_lo[j] = max(done, st.write_from)
-            w_hi[j] = min(done + n, len(st.ids))
+            toks[r, :n] = st.ids[done:done + n]
+            start[r] = done
+            w_lo[r] = max(done, st.write_from)
+            w_hi[r] = min(done + n, len(st.ids))
         args = (self._dev(toks), self.pool.state(), self._dev(tab),
                 self._dev(start), self._dev(w_lo), self._dev(w_hi))
         if ph is not None:
@@ -509,8 +510,10 @@ class Scheduler:
         if ph is not None:
             ph.mark("prefill_post")
         m.prefill_steps += 1
+        m.prefill_computed_tokens += len(rows) * cb
         if len(ns) > 1:
             m.prefill_multi_steps += 1
+        row_of = {j: r for r, j in enumerate(rows)}
         for j, n in ns.items():
             st = self.slots[j]
             m.prefill_chunks += 1
@@ -525,8 +528,8 @@ class Scheduler:
                                  chunk_bucket=cb, page_bucket=pb,
                                  done=st.pre_pos, total=len(st.ids))
             if st.pre_pos >= len(st.ids):
-                self._activate(j, int(outs[j, n - 1]), step_clock)
-        return {"slots": sorted(ns), "chunk_bucket": cb, "page_bucket": pb}
+                self._activate(j, int(outs[row_of[j], n - 1]), step_clock)
+        return {"slots": rows, "chunk_bucket": cb, "page_bucket": pb}
 
     def _activate(self, slot: int, sampled: Optional[int],
                   step_clock: int) -> None:

@@ -43,6 +43,7 @@ from repro_torch.quantize import QuantArtifact, pack_kernel_buffers
 from repro_torch.serve import kvq
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.pool import PagePool
+from repro_torch.serve.scheduler import Scheduler
 
 FUSED = dict(method="muxq", outlier_mode="static", act_granularity="per_token",
              weight_granularity="per_channel", backend="fused")
@@ -207,20 +208,78 @@ def test_paged_steps_logits_match_reference(model, quant, mode):
         np.testing.assert_allclose(tl, jl, rtol=0, atol=LOGIT_ATOL)
 
 
+@pytest.mark.parametrize("quant,mode", [(None, "fp"), ("fused", "int8"),
+                                        ("fused", "fp")])
+def test_prefill_on_the_advancing_rows_equals_the_full_width_call(
+        model, quant, mode):
+    """What the scheduler relies on: ``prefill_chunk_paged`` over only the
+    rows of the slots that advance a chunk gives those rows the logits
+    (f32, within LOGIT_ATOL) and writes the K/V pages and scales, bit for
+    bit, of the full-width call whose other rows are empty (zeroed table
+    rows, empty write windows).  Two chunks, the second a short one."""
+    tcfg = model["tcfg"]
+    n_slots, ps, C, rows = 4, 4, 8, [1, 3]
+    quantizer = kvq.make_quantizer(mode, dtype=torch.float32)
+    kv_full, kv_rows = (quantizer.page_arrays(
+        tcfg.n_layers, 1 + 4 * n_slots, ps, tcfg.n_kv_heads, tcfg.head_dim,
+        "cpu") for _ in range(2))
+    if quant is None:
+        ctx, params = FpCtx(), from_jax_params(tcfg, model["params"], "cpu")
+    else:
+        tart = QuantArtifact.load(model["path"])
+        ctx, params = as_ctx(tart, "cpu"), from_jax_params(tcfg, tart.params,
+                                                            "cpu")
+    table = np.zeros((n_slots, 4), np.int32)
+    table[rows] = 1 + np.arange(4 * len(rows), dtype=np.int32).reshape(-1, 4)
+    rng = np.random.default_rng(5)
+    tt = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    for done, valid in ((0, [C, C]), (C, [C, 5])):
+        toks = np.zeros((n_slots, C), np.int32)
+        start = np.zeros(n_slots, np.int32)
+        w_hi = np.zeros(n_slots, np.int32)
+        for j, n in zip(rows, valid):
+            toks[j, :n] = rng.integers(0, tcfg.vocab_size, n)
+            start[j], w_hi[j] = done, done + n
+        full, kv_full = T.prefill_chunk_paged(
+            tcfg, params, tt(toks), kv_full, tt(table), tt(start), tt(start),
+            tt(w_hi), ctx)
+        part, kv_rows = T.prefill_chunk_paged(
+            tcfg, params, tt(toks[rows]), kv_rows, tt(table[rows]),
+            tt(start[rows]), tt(start[rows]), tt(w_hi[rows]), ctx)
+        assert part.shape == (len(rows),) + tuple(full.shape[1:])
+        np.testing.assert_allclose(part.numpy(), full[rows].numpy(), rtol=0,
+                                   atol=LOGIT_ATOL)
+        # every page a slot owns; scratch page 0 takes the masked writes,
+        # the empty rows' too
+        assert kv_full.keys() == kv_rows.keys()
+        for name in kv_full:
+            assert torch.equal(kv_rows[name][:, 1:], kv_full[name][:, 1:]), (
+                done, name)
+
+
 COUNTERS = ("decode_steps", "prefill_chunks", "prefill_steps", "preemptions",
             "prefix_hits", "cow_copies", "prefills", "tokens_out")
+
+# the engine's settings that a scenario's own overrides start from
+ENGINE = {"max_batch": 3, "s_max": 48, "prefill_chunk": 8}
 
 SCENARIOS = {
     # mixed prompt lengths, multi-chunk prefill interleaved with decode
     "mixed_int8": (dict(kv_mode="int8"),
-                   ["abc", "the paged pool serves", "x", "long " * 9]),
+                   ["abc", "the paged pool serves", "x", "long " * 9], None),
     "mixed_fp": (dict(kv_mode="fp"),
-                 ["abc", "the paged pool serves", "x", "long " * 9]),
+                 ["abc", "the paged pool serves", "x", "long " * 9], None),
     # shared prompt prefixes (prefix hits + copy-on-write) and a pool
     # small enough to preempt
     "shared_preempt": (dict(kv_mode="int8", page_size=4, n_pages=9),
                        ["shared prefix one", "shared prefix two", "shared pr",
-                        "other"]),
+                        "other"], None),
+    # staggered arrivals of prompts of several chunks, every slot free to
+    # prefill: the prefill call's row count follows the slots that advance,
+    # down to the last slot alone while the lower ones decode
+    "staggered_rows": (dict(kv_mode="int8", max_batch=4, prefill_slots=4),
+                       ["abc", "two chunks and one", "a prompt of three chunk",
+                        "the last slot prefills alone here"], [0, 1, 2, 3]),
 }
 
 
@@ -228,16 +287,16 @@ SCENARIOS = {
 def test_engine_streams_and_counters_match_reference(model, scenario):
     """ServeEngine on the reference-written bundle at f32: identical token
     streams and step/preemption/sharing counters."""
-    kw, prompts = SCENARIOS[scenario]
-    common = dict(max_batch=3, s_max=48, prefill_chunk=8, **kw)
+    kw, prompts, arrivals = SCENARIOS[scenario]
+    common = {**ENGINE, **kw}
     jeng = JServeEngine(model["cfg"], model["art"], cache_dtype=jnp.float32,
                         **common)
     jreqs = [JRequest(p, max_new_tokens=6) for p in prompts]
-    jeng.generate(jreqs)
+    jeng.generate(jreqs, arrivals)
     teng = ServeEngine(model["tcfg"], QuantArtifact.load(model["path"]),
                        cache_dtype=torch.float32, device="cpu", **common)
     treqs = [Request(p, max_new_tokens=6) for p in prompts]
-    teng.generate(treqs)
+    teng.generate(treqs, arrivals)
     assert all(r.done for r in treqs)
     assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
     jrep, trep = jeng.metrics.report(), teng.metrics.report()
@@ -247,6 +306,116 @@ def test_engine_streams_and_counters_match_reference(model, scenario):
     assert teng.prefill_buckets == jeng.prefill_buckets
     if scenario == "shared_preempt":
         assert trep["prefix_hits"] > 0 and trep["preemptions"] > 0
+
+
+def _serve_spied(model, monkeypatch, prompts, arrivals=None, **kw):
+    """Serve ``prompts`` on the port's engine (reference-written bundle,
+    f32) with the chunk picker and the prefill call spied on.  Returns the
+    engine, the requests and one record a prefill call: the picked slots in
+    slot order, their prompt positions, the slots decoding, the shapes and
+    routing the call got, and the token sampled at each fresh prompt's
+    last position (by request)."""
+    picks, calls = [], []
+    pick = Scheduler._prefill_pick
+
+    def spy_pick(self, cands, step_clock):
+        picked = pick(self, cands, step_clock)
+        chosen = sorted(picked)
+        st = {j: self.slots[j] for j in chosen}
+        ns = {j: min(self.prefill_chunk, len(s.ids) - s.pre_pos)
+              for j, s in st.items()}
+        picks.append({
+            "chosen": chosen, "pre_pos": [st[j].pre_pos for j in chosen],
+            "ns": ns, "table": self.pool.page_table[chosen].copy(),
+            "decoding": [i for i, s in enumerate(self.slots)
+                         if s is not None and not s.prefilling],
+            "last": {j: st[j].req for j in chosen
+                     if st[j].pre_pos + ns[j] >= len(st[j].ids)
+                     and not st[j].req.out_tokens}})
+        return picked
+
+    monkeypatch.setattr(Scheduler, "_prefill_pick", spy_pick)
+    common = {**ENGINE, **kw}
+    eng = ServeEngine(model["tcfg"], QuantArtifact.load(model["path"]),
+                      cache_dtype=torch.float32, device="cpu", **common)
+    prefill = eng._prefill_pool
+
+    def spy_prefill(tokens, kv, page_table, start, write_lo, write_hi):
+        nxt, kv = prefill(tokens, kv, page_table, start, write_lo, write_hi)
+        p = picks[len(calls)]
+        calls.append({**p, "tokens": tuple(tokens.shape),
+                      "page_table": page_table.numpy().copy(),
+                      "start": start.tolist(), "write_hi": write_hi.tolist(),
+                      "first": {id(p["last"][j]): int(nxt[p["chosen"].index(j),
+                                                           p["ns"][j] - 1])
+                                for j in p["last"]}})
+        return nxt, kv
+
+    eng._prefill_pool = spy_prefill
+    reqs = [Request(p, max_new_tokens=6) for p in prompts]
+    eng.generate(reqs, arrivals)
+    assert all(r.done for r in reqs) and len(calls) == len(picks)
+    return eng, reqs, calls
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+def test_prefill_call_carries_only_the_advancing_slots(model, monkeypatch,
+                                                       scenario):
+    """Every prefill call gets one row per slot the picker chose, in slot
+    order, never the pool's width when fewer advance; each row carries its
+    slot's page table, start and write window; each fresh prompt's first
+    token is the one sampled at its own row; ``prefill_computed_tokens``
+    counts rows x chunk bucket over the calls."""
+    kw, prompts, arrivals = SCENARIOS[scenario]
+    eng, reqs, calls = _serve_spied(model, monkeypatch, prompts, arrivals,
+                                    **kw)
+    firsts = {}
+    for c in calls:
+        assert c["tokens"][0] == len(c["chosen"]) >= 1
+        assert c["start"] == c["pre_pos"]
+        assert c["write_hi"] == [p + c["ns"][j] for j, p in
+                                 zip(c["chosen"], c["pre_pos"])]
+        pb = c["page_table"].shape[1]
+        np.testing.assert_array_equal(c["page_table"], c["table"][:, :pb])
+        firsts.update(c["first"])
+    assert set(firsts) == {id(r) for r in reqs}
+    for r in reqs:
+        assert r.out_tokens[0] == firsts[id(r)]
+    rep = eng.metrics.report()
+    assert rep["prefill_steps"] == len(calls)
+    assert rep["prefill_computed_tokens"] == sum(
+        c["tokens"][0] * c["tokens"][1] for c in calls)
+    assert rep["prefill_row_use"] == pytest.approx(
+        rep["prefill_chunk_tokens"] / rep["prefill_computed_tokens"])
+    if scenario == "staggered_rows":
+        # the call's width follows the advancing slots (one to three of the
+        # four), down to the highest slot alone while lower slots decode
+        assert {c["tokens"][0] for c in calls} == {1, 2, 3}
+        assert any(c["chosen"] == [eng.pool.n_slots - 1] and c["decoding"]
+                   and max(c["decoding"]) < c["chosen"][0] for c in calls)
+
+
+def test_prefill_row_use_counts_the_padded_positions(model, monkeypatch):
+    """``prefill_row_use`` is 1.0 when every chunk fills its bucket, and
+    below 1.0 when a prompt's last chunk is short of it; the computed
+    positions are rows x chunk bucket either way."""
+    # 16, 24 and 8 tokens (BOS included): every chunk fills its bucket of 8
+    eng, _, calls = _serve_spied(model, monkeypatch,
+                                 ["a" * 15, "b" * 23, "c" * 7],
+                                 prefill_slots=3)
+    rep = eng.metrics.report()
+    assert rep["prefill_chunk_tokens"] == 48
+    assert rep["prefill_computed_tokens"] == 48 and rep["prefill_row_use"] == 1.0
+    assert [c["tokens"] for c in calls] == [(3, 8), (2, 8), (1, 8)]
+    monkeypatch.undo()
+    # 16 and 21 tokens: the second prompt's last chunk is 5 of a bucket of 8
+    eng, _, calls = _serve_spied(model, monkeypatch, ["a" * 15, "b" * 20],
+                                 prefill_slots=2)
+    rep = eng.metrics.report()
+    assert rep["prefill_chunk_tokens"] == 37
+    assert rep["prefill_computed_tokens"] == sum(
+        r * cb for r, cb in (c["tokens"] for c in calls)) == 40
+    assert rep["prefill_row_use"] == pytest.approx(37 / 40)
 
 
 def test_fp_engine_streams_match_reference(model):
