@@ -1,5 +1,6 @@
 """Find a cell's pieces by name: ``BENCHMARK.json``'s entry, its
-configuration (``configs/<config>.json``), its traffic mix
+configuration (``configs/<config>.json``), the architecture that makes
+its weights and reference (``archs/<arch>.py``), its traffic mix
 (``traffic/<mix>.json``) and the readers of its per-layer metrics
 (``metrics/<metric>.py``).  Nothing here knows any cell: a cell made of
 new files and entries loads without an edit."""
@@ -8,7 +9,8 @@ from __future__ import annotations
 import importlib.util
 import json
 from pathlib import Path
-from typing import Callable, Dict, List
+from types import ModuleType, SimpleNamespace
+from typing import Callable, Dict, List, Union
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -30,14 +32,49 @@ def mix(name: str, bench: Path = BENCH) -> Dict:
     return t
 
 
-def reader(metric: str, bench: Path = BENCH) -> Callable:
-    """``metrics/<metric>.py``'s ``read(records)``."""
-    path = bench / "metrics" / f"{metric}.py"
+def _load(kind: str, name: str, path: Path) -> ModuleType:
     spec = importlib.util.spec_from_file_location(
-        "pbench_metric_" + metric.replace(".", "_").replace("-", "_"), path)
+        f"pbench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(metric: str, bench: Path = BENCH) -> Callable:
+    """``metrics/<metric>.py``'s ``read(records)``."""
+    return _load("metric", metric, bench / "metrics" / f"{metric}.py").read
+
+
+def arch(config: Dict, bench: Path = BENCH) -> Union[ModuleType, SimpleNamespace]:
+    """The code that makes a configuration's weights and its plain
+    reference: ``archs/<name>.py`` where the configuration's file has a
+    top-level ``"arch": "<name>"``, else the dense pre-norm decoder of
+    ``pbench.weights`` and ``pbench.reference``.
+
+    An architecture file provides
+
+    * ``tree(m, seed, device)``: the program's float32 parameters in the
+      port's tree layout, made on ``device`` from the seed (``m`` is the
+      configuration's ``port`` dict);
+    * ``Reference(m, seed, kv_mode, device)``, with
+      ``calibrate(batches)``, which works out again from the same seed and
+      the [b, s] token batches everything the program's set-up derived
+      (outlier masks, KV redistribution), and ``logits(seqs, first,
+      weight_bits=8, tf32=False, float_dtype=torch.float32)``, which
+      returns each sequence's logits [len(seq) - first, vocab] at
+      positions ``first`` onwards, its int8 sites at ``weight_bits``
+      (4 is the control) and its float parts in ``float_dtype``, with TF32
+      matmuls only where ``tf32``.
+
+    It imports nothing of the program and nothing of JAX, and may import
+    ``pbench.weights`` and ``pbench.reference`` to share their pieces
+    (``derive``, ``hot_channels``, ``norm``, ``rope``, ``muxq_site``,
+    ``kv_int8``, ``kv_int4``, ...)."""
+    name = config.get("arch")
+    if name is None:
+        from pbench import reference, weights
+        return SimpleNamespace(tree=weights.tree, Reference=reference.Reference)
+    return _load("arch", name, bench / "archs" / f"{name}.py")
 
 
 def cell(name: str, root: Path = ROOT) -> Dict:

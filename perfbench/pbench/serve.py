@@ -1,9 +1,10 @@
 """One run of one cell: set-up, the measured window, the comparison with
 the reference, and the result.
 
-Set-up makes the weights and two calibration batches from the seed,
-quantizes through the program's ``quantize_model`` (static MUXQ masks,
-packed fused-site buffers, the f32 site weights dropped) and builds the
+Set-up makes the weights (with the configuration's architecture,
+``cells.arch``) and two calibration batches from the seed, quantizes
+through the program's ``quantize_model`` (static MUXQ masks, packed
+fused-site buffers, the f32 site weights dropped) and builds the
 program's ``ServeEngine``.  The whole arrival schedule then goes to one
 scheduler run: its first ``warmup_steps`` steps fill the slots (and, for
 a documents mix, prefill every document), and the window opens at the
@@ -12,11 +13,11 @@ ends ``seconds`` later; the harness stops the scheduler there by raising
 from its step hook.  With ``trace`` the program's flight recorder runs
 too and ``torch.profiler`` covers a stretch of the window.
 
-Once the window has closed and the program is freed, the reference runs
-over a sample of the finished requests, drawn from the seed with the
-longest among them, and the widest gap of a served token's reference
-logit below the reference's best, and the mean of those gaps, are held
-against the cell's limits (``perfbench/limits/<cell>.json`` names the
+Once the window has closed and the program is freed, the architecture's
+reference runs over a sample of the finished requests, drawn from the
+seed with the longest among them, and the widest gap of a served token's
+reference logit below the reference's best, and the mean of those gaps,
+are held against the cell's limits (``perfbench/limits/<cell>.json`` names the
 numbers compared).  The control (``CONTROLS``) is the reference one step
 down in precision, put in the program's place: its tokens are judged by
 the same limits, and it has to come out not correct.
@@ -36,7 +37,6 @@ import numpy as np
 import torch
 
 from pbench import cells, reference, stamps, traffic
-from pbench import weights as W
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 STEPS_PER_S_CAP = 100     # the schedule covers a window run this fast
@@ -67,21 +67,22 @@ def calib_batches(m: Dict, seed: int) -> List[np.ndarray]:
 
 
 def model_config(m: Dict):
+    """The program's frozen ``ModelConfig``; a list-valued key (a per-layer
+    pattern) becomes a tuple."""
     from repro_torch.models.common import ModelConfig
-    kw = dict(m)
-    kw["block_pattern"] = tuple(kw["block_pattern"])
-    return ModelConfig(**kw)
+    return ModelConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in m.items()})
 
 
-def setup_engine(m: Dict, mix: Dict, seed: int, device, recorder):
-    """Weights, calibration, packing and the engine."""
+def setup_engine(m: Dict, mix: Dict, seed: int, device, recorder, arch):
+    """Weights (``arch.tree``), calibration, packing and the engine."""
     from repro_torch.launch.steps import MUXQ_FUSED_SERVE
     from repro_torch.core.policy import SitePolicy
     from repro_torch.quantize import quantize_model
     from repro_torch.serve.engine import ServeEngine
 
     cfg = model_config(m)
-    params = W.tree(m, seed, device)
+    params = arch.tree(m, seed, device)
     art = quantize_model(cfg, params,
                          [{"tokens": b} for b in calib_batches(m, seed)],
                          SitePolicy.uniform(MUXQ_FUSED_SERVE),
@@ -105,9 +106,15 @@ def _launches() -> int:
             + sum(paged_attention.MODE_LAUNCHES.values()))
 
 
-_COUNTERS = ("decode_steps", "decode_slot_steps", "prefill_steps",
-             "prefill_chunk_tokens", "prefix_hits", "preemptions",
-             "tokens_out", "completed")
+def counters(met) -> Dict[str, int]:
+    """Every counter that ``ServeMetrics`` registers, by name, so a
+    counter the program adds reaches a reader without an edit here.  Its
+    gauges and histograms stay out: a window's difference of them means
+    nothing, as it means only the rise for the counters that the program
+    sets to a peak (``*_peak``, ``*_max``)."""
+    from repro_torch.obs.registry import Counter
+    return {n: c.value for n, c in met.registry._metrics.items()
+            if isinstance(c, Counter)}
 
 
 def p95(xs: List[float]) -> float:
@@ -165,6 +172,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     t_proc = t_start if t_start is not None else time.perf_counter()
     c = cells.cell(name, root)
     m, mix = c["config"]["port"], c["mix"]
+    arch = cells.arch(c["config"], root / "perfbench")
     if overrides:
         m = {**m, **overrides.get("config", {})}
         mix = {**mix, **overrides.get("mix", {})}
@@ -176,7 +184,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         from repro_torch.obs.trace import TraceRecorder
         inner = TraceRecorder(capacity=1 << 20)
     st = stamps.Stamps(inner)
-    engine = setup_engine(m, mix, seed, device, st)
+    engine = setup_engine(m, mix, seed, device, st, arch)
     if trace and device.type == "cuda":
         from pbench.profile import warm_up
         warm_up(device)
@@ -192,8 +200,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     state: Dict = {"open": None, "close": None, "span": None}
 
     def snapshot():
-        met = sched.metrics
-        return {k: getattr(met, k) for k in _COUNTERS}, _launches()
+        return counters(sched.metrics), _launches()
 
     def on_step(rec):
         wall = rec["wall"]
@@ -280,7 +287,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
 
     # -- the comparison ------------------------------------------------------
     t_ref = time.perf_counter()
-    check = compare(m, mix, seed, device, seqs, controls=controls)
+    check = compare(m, mix, seed, device, seqs, arch, controls=controls)
     check["seconds"] = time.perf_counter() - t_ref
     checks, correct = judge(check, limits, failed, bool(seqs))
     log(f"reference: {len(seqs)} requests, {check['tokens']} served tokens, "
@@ -350,12 +357,13 @@ def _sample(finished: List[int], reqs, seed: int) -> List[int]:
     return out
 
 
-def compare(m: Dict, mix: Dict, seed: int, device, seqs,
+def compare(m: Dict, mix: Dict, seed: int, device, seqs, arch,
             controls=()) -> Dict:
-    """The reference's widest logit gap over the served tokens of
-    ``seqs`` [(prompt, served tokens)]; with ``controls``, also the gaps
-    of the tokens that each control (the reference one step down in
-    precision) would put first, under ``controls``."""
+    """The widest logit gap of the architecture's reference
+    (``arch.Reference``) over the served tokens of ``seqs`` [(prompt,
+    served tokens)]; with ``controls``, also the gaps of the tokens that
+    each control (the reference one step down in precision) would put
+    first, under ``controls``."""
     if not seqs:
         return {"gap": math.inf, "mean": math.inf, "differ": 0, "tokens": 0}
     from pbench.tokens import encode
@@ -364,7 +372,7 @@ def compare(m: Dict, mix: Dict, seed: int, device, seqs,
     first = [len(encode(p)) - 1 for p, _ in seqs]
     served = [np.asarray(o, np.int64) for _, o in seqs]
     with torch.no_grad():
-        ref = reference.Reference(m, seed, mix["serving"]["kv_mode"], device)
+        ref = arch.Reference(m, seed, mix["serving"]["kv_mode"], device)
         ref.calibrate(calib_batches(m, seed))
         lg = ref.logits(ids, first)
         out = reference.widest_gap(lg, served)
@@ -397,7 +405,7 @@ def _records(st, inner, state, items, m, mix, device, t0, t1) -> Dict:
         "device": device.type,
         "all_steps": steps,
         "steps": [s for s in steps if t0 < s["wall"] <= t1],
-        "counters": {k: c1[k] - c0[k] for k in c0},
+        "counters": {k: c1[k] - c0.get(k, 0) for k in c1},
         "launches": l1 - l0,
         "tokens": st.tokens, "chunks": chunks, "shared": shared,
         "docs": {rid: it.doc for rid, it in enumerate(items)},

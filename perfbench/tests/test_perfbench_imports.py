@@ -1,6 +1,6 @@
 """Nothing a run loads is JAX or the JAX package (top-level names compared
-whole: ``repro_torch`` is not ``repro``), and the reference's files import
-nothing of the program."""
+whole: ``repro_torch`` is not ``repro``), and the reference's files and
+the architecture files import nothing of the program."""
 import ast
 import subprocess
 import sys
@@ -48,6 +48,16 @@ def test_the_reference_imports_nothing_of_the_program():
         assert not names & (FORBIDDEN | {"repro_torch"}), (f, names)
         assert names <= {"__future__", "contextlib", "math", "typing",
                          "numpy", "torch", "pbench"}, (f, names)
+
+
+def test_no_architecture_file_imports_the_program():
+    # archs/<name>.py, and the toy that the tests copy in as one
+    files = sorted((BENCH / "archs").glob("*.py")) + sorted(
+        (BENCH / "tests").glob("archs_*.py"))
+    assert files
+    for f in files:
+        names = _imports(f)
+        assert not names & (FORBIDDEN | {"repro_torch"}), (f, names)
 
 
 def test_no_harness_file_imports_jax():

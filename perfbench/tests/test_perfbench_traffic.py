@@ -1,5 +1,5 @@
 """The traffic generator: the same seed gives the same requests, every
-seed offers the same block of sizes and gaps, a stationary start sends
+seed sends the same sizes at the same steps, a stationary start sends
 the requests in flight at step 0, and the rehearsal's rate is written
 into every mix."""
 import collections
@@ -51,6 +51,27 @@ def test_every_seed_offers_the_same_block(name):
                                    for x in items)
 
     assert sizes(1) == sizes(2 ** 33 + 1)
+
+
+@pytest.mark.parametrize("name", MIXES + ["documents"])
+def test_every_seed_sends_the_same_schedule(name):
+    """Only the text follows the seed: the sizes, their order and the
+    arrival steps are the mix's own, so a tail over the window reads the
+    same load on every seed."""
+    mix = _documents_mix() if name == "documents" else cells.mix(name)
+
+    def schedule(seed):
+        return [(x.prompt_tokens, x.max_new_tokens, x.arrive_step, x.doc)
+                for x in traffic.generate(mix, seed, 400)]
+
+    a, b = schedule(2 ** 31 + 7), schedule(2 ** 33 + 1)
+    assert a == b and len(a) > mix["block"]
+    # and each block of the mix still comes in another order
+    n = mix["block"]
+    docs = mix.get("documents") or {}
+    skip = (docs["count"] if docs.get("first") else 0) + _in_flight(mix)
+    blocks = [a[skip + i * n: skip + (i + 1) * n] for i in range(2)]
+    assert [x[:2] for x in blocks[0]] != [x[:2] for x in blocks[1]]
 
 
 @pytest.mark.parametrize("name", MIXES + ["documents"])
