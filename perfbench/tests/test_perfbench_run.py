@@ -2,7 +2,12 @@
 kernel versions: each mix gives a result of the contract's shape; the
 controls (the reference with int4 weights, and with bfloat16 attention
 and head) and each fault that a serving cell can have, planted under the
-timed path, come out not correct."""
+timed path, come out not correct.
+
+The per-cell checks are functions of ``(run, cell)``, where ``run`` is
+``small_run`` or one bound to another benchmark's root, so that a cell of
+a copy of the benchmark is held to the same checks
+(``test_perfbench_toy_cell.py``)."""
 import json
 import math
 
@@ -14,13 +19,13 @@ from pbench import cells
 CELLS = [w["name"] for w in cells.benchmark()["workloads"]]
 
 
-def _shape(out, cell, trace):
+def _shape(out, cell, trace, root=cells.ROOT):
     assert list(out)[:5] == ["correct", "attempted", "failed", "metrics",
                              "device"]
     assert list(out)[-1] == "checks"
     dev = out["device"]
     assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(dev)
-    c = cells.cell(cell)
+    c = cells.cell(cell, root)
     want = c["per_layer"] if trace else c["end_to_end"]
     units = {m["name"]: m["unit"] for m in want}
     for name, v in out["metrics"].items():
@@ -30,10 +35,13 @@ def _shape(out, cell, trace):
     json.loads(json.dumps(out))
 
 
+def a_correct_run(run, cell, root=cells.ROOT):
+    _correct_run(run(cell), cell, root)
+
+
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_run_of_each_cell(small_run, cell):
-    out = small_run(cell)
-    _correct_run(out, cell)
+    a_correct_run(small_run, cell)
 
 
 def test_a_run_on_int4_pages_with_shared_documents(small_run):
@@ -44,8 +52,8 @@ def test_a_run_on_int4_pages_with_shared_documents(small_run):
     _correct_run(out, cell)
 
 
-def _correct_run(out, cell):
-    _shape(out, cell, False)
+def _correct_run(out, cell, root=cells.ROOT):
+    _shape(out, cell, False, root)
     assert out["correct"] is True and out["failed"] == 0
     assert out["attempted"] > 0
     assert "mean_logit_gap" in out["checks"]
@@ -53,22 +61,30 @@ def _correct_run(out, cell):
         assert c["value"] <= c["limit"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_a_traced_run(small_run, cell):
-    out = small_run(cell, trace=True)
-    _shape(out, cell, True)
+def a_traced_run(run, cell, root=cells.ROOT):
+    out = run(cell, trace=True)
+    _shape(out, cell, True, root)
     assert out["correct"] is True
     assert out["metrics"], "no per-layer metric found anything to read"
 
 
 @pytest.mark.parametrize("cell", CELLS)
-def test_the_control_is_not_correct(small_run, cell):
-    out = small_run(cell, controls=("w4",))
+def test_a_traced_run(small_run, cell):
+    a_traced_run(small_run, cell)
+
+
+def a_control_not_correct(run, cell):
+    out = run(cell, controls=("w4",))
     assert out["program_correct"] is True
     assert out["correct"] is False
     judged = out["controls"]["w4"]
     assert judged["correct"] is False
     assert any(c["value"] > c["limit"] for c in judged["checks"].values())
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_control_is_not_correct(small_run, cell):
+    a_control_not_correct(small_run, cell)
 
 
 def test_the_float_readings_are_judged_too(small_run):
@@ -85,21 +101,28 @@ def test_the_float_readings_are_judged_too(small_run):
 _TRACED = {}
 
 
-@pytest.mark.parametrize("cell,metric", [
-    (c, m["name"]) for c in CELLS for m in cells.cell(c)["per_layer"]])
-def test_each_reader_reads_or_returns_nothing(small_run, cell, metric):
-    # one small traced run a cell, shared by its readers' cases: a reader
-    # that finds nothing to read (no device profile on the CPU) returns
-    # nothing, and never a 0 for a share
-    if cell not in _TRACED:
-        _TRACED[cell] = small_run(cell, trace=True)
-    source = next(m["source"] for m in cells.cell(cell)["per_layer"]
+def a_reader_reads_or_returns_nothing(run, cell, metric, traced=_TRACED,
+                                      root=cells.ROOT):
+    """The metric's reading in one small traced run a cell, kept in
+    ``traced`` and shared by the cell's readers' cases, or None."""
+    # a reader that finds nothing to read (no device profile on the CPU)
+    # returns nothing, and never a 0 for a share
+    if cell not in traced:
+        traced[cell] = run(cell, trace=True)
+    source = next(m["source"] for m in cells.cell(cell, root)["per_layer"]
                   if m["name"] == metric)
-    got = _TRACED[cell]["metrics"].get(metric)
+    got = traced[cell]["metrics"].get(metric)
     if source == "device_trace":
         assert got is None
     elif got is not None:
         assert math.isfinite(got["value"]) and got["value"] > 0
+    return got
+
+
+@pytest.mark.parametrize("cell,metric", [
+    (c, m["name"]) for c in CELLS for m in cells.cell(c)["per_layer"]])
+def test_each_reader_reads_or_returns_nothing(small_run, cell, metric):
+    a_reader_reads_or_returns_nothing(small_run, cell, metric)
 
 
 def test_longest_step_is_the_widest_gap_in_the_window():
@@ -155,15 +178,21 @@ def _token_altered(monkeypatch):
     monkeypatch.setattr(ServeEngine, "_decode_pool", decode)
 
 
-@pytest.mark.parametrize("fault", [_state_unchanged, _half_left_out,
-                                   _token_altered])
+FAULTS = [_state_unchanged, _half_left_out, _token_altered]
+
+
+def a_fault_not_correct(run, cell, monkeypatch, fault):
+    fault(monkeypatch)
+    out = run(cell)
+    assert out["correct"] is False
+    assert any(c["value"] > c["limit"] for c in out["checks"].values())
+
+
+@pytest.mark.parametrize("fault", FAULTS)
 @pytest.mark.parametrize("cell", CELLS)
 def test_a_fault_under_the_timed_path_is_not_correct(small_run, monkeypatch,
                                                      cell, fault):
-    fault(monkeypatch)
-    out = small_run(cell)
-    assert out["correct"] is False
-    assert any(c["value"] > c["limit"] for c in out["checks"].values())
+    a_fault_not_correct(small_run, cell, monkeypatch, fault)
 
 
 def test_cpu_only_machine_refuses(monkeypatch, capsys):
