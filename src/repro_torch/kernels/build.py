@@ -40,7 +40,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rowwise_quantize": [_P] * 5 + [_I] * 5 + [_P],
     "muxq_gemm": [_P] * 6 + [_I] * 5 + [_P],
-    "paged_attention": [_P] * 11 + [_I] * 10 + [_F] * 2 + [_I] * 2 + [_P],
+    "paged_attention": [_P] * 11 + [_I] * 11 + [_F] * 2 + [_I] * 2 + [_P],
     "flash_attention": [_P] * 5 + [_I] * 8 + [_F] * 2 + [_I] + [_P],
 }
 

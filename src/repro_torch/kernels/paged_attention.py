@@ -14,12 +14,17 @@ Execution (mirrors ``set_fused_impl``): ``auto`` launches the CUDA kernel
 for CUDA tensors and takes the plain version for CPU tensors; ``ref``
 forces the plain version.  A CUDA tensor never falls back silently.
 ``MODE_LAUNCHES`` counts kernel launches by page mode (their sum is the
-kernel's launch count); ``accounting`` sees every call.
+kernel's launch count), ``TILE_LAUNCHES`` by the tile that ran;
+``accounting`` sees every call.
 
 The kernel's grid is (KV split, row tile, slot x KV head): ``plan_splits``
 cuts a slot's ``sq * g`` query rows into tiles of ``ROW_TILE`` and its page
 table into splits, from the table's width alone (``pos`` stays on the
-card).  With several splits the C call launches a second, merging pass
+card).  Two tiles of ``ROW_TILE`` rows run a block, ``chunk_tile`` picks
+one from the shape: the row tile serves decode, verify, bf16 q and dh 256;
+f32 q with more than one row tile of rows (a prefill chunk) at dh <= 128
+takes the register-blocked chunk tile, whose output is the row tile's bit
+for bit.  With several splits the C call launches a second, merging pass
 over f32 partials in scratch that the wrapper allocates.  Under
 tensor-parallel serving a rank's pages hold only its KV heads; the caller
 passes the model's global KV-head count as ``plan_kv_heads``, so the plan
@@ -44,6 +49,7 @@ PagedImpl = Literal["auto", "ref"]
 _PAGED_IMPL: PagedImpl = "auto"
 
 MODE_LAUNCHES = {"fp": 0, "int8": 0, "int4": 0}
+TILE_LAUNCHES = {"row": 0, "chunk": 0}
 
 ROW_TILE = 64           # query rows of a block (4 warps x 16; csrc attn::kRows)
 MAX_PAGES_PER_SPLIT = 1024   # a split's page ids sit in shared memory
@@ -131,6 +137,15 @@ def key_tile(dh: int) -> int:
     return 4096 // (64 if dh <= 64 else 128 if dh <= 128 else 256)
 
 
+def chunk_tile(rows: int, dh: int, f32: bool) -> bool:
+    """Does a launch of ``rows = sq * g`` query rows per (slot, KV head)
+    take the chunk tile?  f32 q with more rows than one row tile (a
+    prefill chunk) at dh <= 128, a multiple of 8 (its dequantization reads
+    four channels at once); decode, verify, bf16 q (its tensor-core path)
+    and dh 224 or 256 keep the row tile."""
+    return f32 and rows > ROW_TILE and dh <= 128 and dh % 8 == 0
+
+
 def plan_splits(b: int, kvh: int, rows: int, n_table: int, ps: int, dh: int,
                 n_sm: int = 132) -> Tuple[int, int, int]:
     """The kernel's grid for ``rows = sq * g`` query rows per (slot, KV
@@ -202,10 +217,12 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
     q = q.contiguous()
     out = torch.empty_like(q)
     n_table = page_table.shape[1]
-    n_rt, pps, n_split = plan_splits(b, plan_kv_heads or kvh, sq * (h // kvh),
-                                     n_table, ps, dh, build.sm_count(q.device))
+    rows = sq * (h // kvh)
+    chunk = chunk_tile(rows, dh, q.dtype == torch.float32)
+    n_rt, pps, n_split = plan_splits(b, plan_kv_heads or kvh, rows, n_table, ps,
+                                     dh, build.sm_count(q.device))
     ws = None if n_split == 1 else torch.empty(
-        workspace_floats(b, kvh, sq * (h // kvh), dh, n_rt, n_split),
+        workspace_floats(b, kvh, rows, dh, n_rt, n_split),
         dtype=torch.float32, device=q.device)
     rc = build.launcher("paged_attention")(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -216,12 +233,13 @@ def _launch(q, k_pages, v_pages, page_table, pos, k_scale, v_scale,
             page_table.data_ptr(), pos.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             b, sq, h, kvh, dh, ps, n_table,
-            NO_WINDOW if window is None else int(window), pps, n_split,
+            NO_WINDOW if window is None else int(window), pps, n_split, int(chunk),
             dh ** -0.5, 0.0 if softcap is None else float(softcap),
             _Q_CODES[q.dtype], _KV_INT4 if int4 else _KV_CODES[k_pages.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     build.check(rc, "paged_attention")
     MODE_LAUNCHES["int4" if int4 else "int8" if scaled else "fp"] += 1
+    TILE_LAUNCHES["chunk" if chunk else "row"] += 1
     return out[:, 0] if squeeze else out
 
 

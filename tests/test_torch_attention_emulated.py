@@ -254,3 +254,124 @@ def test_emulated_single_tile_is_the_plain_arithmetic(emulated, n_table):
     want = _gpu_plain_order(rows, kk, vv, qpos, dh ** -0.5)
     got = out[0].permute(1, 0, 2).reshape(-1, dh).numpy()
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.fixture
+def row_tile_only(monkeypatch):
+    """Run ``fn`` with every launch on the row tile, as before the chunk
+    tile: the reference the chunk tile is held to."""
+    def run(fn):
+        with monkeypatch.context() as m:
+            m.setattr(PA, "chunk_tile", lambda rows, dh, f32: False)
+            return fn()
+    return run
+
+
+@pytest.fixture
+def sms(monkeypatch):
+    """Set the emulated card's SM count, which the split plan fills."""
+    from repro_torch.kernels import build as kbuild
+    return lambda n: monkeypatch.setattr(kbuild, "sm_count", lambda device: n)
+
+
+@pytest.mark.parametrize("mode,dh,g,sq,n_table,n_sm", [
+    ("fp", 64, 1, 65, 6, 4),
+    ("int8", 128, 5, 65, 6, 4),
+    ("int4", 64, 7, 65, 6, 4),
+    ("int4", 128, 5, 65, 6, 64),
+])
+def test_emulated_chunk_tile_is_the_row_tiles_arithmetic(emulated, row_tile_only, sms,
+                                                         mode, dh, g, sq, n_table,
+                                                         n_sm):
+    """f32 q with more than 64 rows per (slot, KV head) runs the chunk
+    tile: slots whose chunk ends at the table's end, starts halfway
+    (and runs past the table), starts at position 0, and an idle slot on
+    scratch page 0; ragged last row tiles (65 g rows); whole tables (4 SMs)
+    and split ones (64 SMs: 3 splits).  Its output equals the row tile's
+    bit for bit, and the plain version's within the f32 atol 1e-4."""
+    sms(n_sm)
+    q, k, v, table, pos = _pages(n_table + sq + g + dh, b=4, sq=sq, h=g, kvh=1,
+                                 n_table=n_table, dh=dh)
+    k, v, kw = _mode(mode, k, v)
+    args = (q, k, v, table, pos)
+    before = PA.TILE_LAUNCHES["chunk"]
+    out = _run_paged(*args, kw)
+    assert PA.TILE_LAUNCHES["chunk"] == before + 1
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, row_tile_only(lambda: _run_paged(*args, kw)))
+    torch.testing.assert_close(out, PA.paged_attention_plain(*args, **kw),
+                               rtol=0, atol=1e-4)
+
+
+def test_emulated_chunk_tile_full_chunk_matches_plain(emulated, sms):
+    """A chunk of 512 (8 row tiles, the cell's chunk length) on int8
+    pages at dh 64: the chunk ending at the table's end from position 0,
+    one from halfway past the end, and the idle slot; within the f32 atol
+    1e-4 of the plain version."""
+    sms(4)
+    q, k, v, table, pos = _pages(512, b=3, sq=512, h=1, kvh=1, n_table=32)
+    k, v, kw = _mode("int8", k, v)
+    before = PA.TILE_LAUNCHES["chunk"]
+    out = _run_paged(q, k, v, table, pos, kw)
+    assert PA.TILE_LAUNCHES["chunk"] == before + 1
+    torch.testing.assert_close(out, PA.paged_attention_plain(q, k, v, table, pos, **kw),
+                               rtol=0, atol=1e-4)
+
+
+def test_emulated_chunk_tile_window_and_softcap(emulated, row_tile_only, sms):
+    """A window of 20 with a softcap of 30 under the chunk tile (dh 128, g
+    5): bit-equal to the row tile, within 1e-4 of the plain version."""
+    sms(4)
+    q, k, v, table, pos = _pages(133, b=4, sq=65, h=5, kvh=1, n_table=6, dh=128)
+    kw = {"window": 20, "softcap": 30.0}
+    out = _run_paged(q, k, v, table, pos, kw)
+    assert torch.equal(out, row_tile_only(lambda: _run_paged(q, k, v, table, pos, kw)))
+    torch.testing.assert_close(out, PA.paged_attention_plain(q, k, v, table, pos, **kw),
+                               rtol=0, atol=1e-4)
+
+
+def test_emulated_chunk_tile_single_tile_is_the_plain_arithmetic(emulated):
+    """A table of one key tile (4 pages of 16 at dh 64) under 65 query rows
+    (sq 13 x g 5): the chunk tile normalizes before P.V in PyTorch's order,
+    and its output equals, bit for bit, the plain version's operations as
+    the card runs them (key 63 masked for every row)."""
+    rng = np.random.default_rng(65)
+    ps, dh, n_table, sq, g = 16, 64, 4, 13, 5
+    n_keys = ps * n_table
+    q = (rng.standard_normal((1, sq, g, dh)) * 3).astype(np.float32)
+    k = (rng.standard_normal((n_table + 1, ps, 1, dh)) * 3).astype(np.float32)
+    v = (rng.standard_normal((n_table + 1, ps, 1, dh)) * 3).astype(np.float32)
+    table = np.arange(1, n_table + 1, dtype=np.int32)[None]
+    pos = np.array([n_keys - sq - 1], np.int32)
+    before = PA.TILE_LAUNCHES["chunk"]
+    out = _run_paged(*(torch.from_numpy(a) for a in (q, k, v, table, pos)), {})
+    assert PA.TILE_LAUNCHES["chunk"] == before + 1
+    rows = q[0].transpose(1, 0, 2).reshape(-1, dh)       # (head, token) rows
+    qpos = np.tile(pos[0] + np.arange(sq), g)
+    want = _gpu_plain_order(rows, k[1:].reshape(n_keys, dh), v[1:].reshape(n_keys, dh),
+                            qpos, dh ** -0.5)
+    got = out[0].permute(1, 0, 2).reshape(-1, dh).numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_emulated_chunk_tile_head_shards_at_the_global_plan(emulated, sms):
+    """A rank of a tp-2 serve runs its chunk (sq 65 x g 2 = 130 rows on int8
+    pages, 6 pages in 2 splits) on its kvh / tp heads with the plan of all
+    kvh heads: the ranks' outputs, concatenated over heads, are bit-equal
+    to one launch over every head."""
+    kvh, g, tp = 4, 2, 2
+    sms(32)
+    assert PA.plan_splits(2, kvh, 65 * g, 6, 16, 64, 32)[2] == 2
+    q, k, v, table, pos = _pages(52, b=2, sq=65, h=kvh * g, kvh=kvh, n_table=6)
+    k, v, kw = _mode("int8", k, v)
+    full = _run_paged(q, k, v, table, pos, kw)
+    kl, hl = kvh // tp, kvh // tp * g
+    parts = []
+    for r in range(tp):
+        heads = slice(r * kl, (r + 1) * kl)
+        rkw = {n: t[:, :, heads].contiguous() for n, t in kw.items()}
+        parts.append(_run_paged(
+            q[:, :, r * hl:(r + 1) * hl], k[:, :, heads].contiguous(),
+            v[:, :, heads].contiguous(), table, pos,
+            {**rkw, "plan_kv_heads": kvh}))
+    assert torch.equal(torch.cat(parts, dim=2), full)

@@ -85,6 +85,59 @@ def test_plan_fills_the_card_at_decode():
     assert PA.workspace_floats(4, 2, 7, 64, 1, 1) == 0
 
 
+def test_chunk_tile_takes_f32_chunks_only():
+    """The chunk tile runs f32 q with more than 64 rows per (slot, KV head)
+    at dh <= 128, a multiple of 8: prefill chunks (qwen2's 224 rows,
+    gpt2's 512, the cell's 2560); decode and verify (at most 64 rows), bf16
+    q, dh 68 and dh 224 or 256 keep the row tile.  Either tile runs the
+    same grid: the plan depends on neither, and the cell's chunk is 40 row
+    tiles of one split."""
+    for rows in (1, 4, 7, 28, 32, 56, 64, 65, 224, 512, 2560):
+        for dh in (64, 68, 96, 128, 224, 256):
+            for f32 in (False, True):
+                assert PA.chunk_tile(rows, dh, f32) == (
+                    f32 and rows > 64 and dh in (64, 96, 128))
+    assert PA.plan_splits(3, 8, 2560, 264, 16, 128) == (40, 264, 1)
+
+
+@pytest.mark.parametrize("sq,g", [(13, 5), (65, 1), (65, 7), (512, 5)])
+def test_chunk_plan_covers_every_row_and_page_once(sq, g):
+    """At the chunk tile's shapes (ragged 65 g rows, the cell's 2560) every
+    (slot, KV head, query row, page) falls in exactly one block, none
+    empty."""
+    rows = sq * g
+    assert PA.chunk_tile(rows, 128, True)
+    for b, kvh, n_sm in ((4, 2, 132), (1, 1, 132), (3, 8, 132), (1, 2, 8)):
+        for ps, dh in ((16, 64), (4, 64), (16, 128)):
+            for n_table in (1, 2, 3, 9, 16, 40):
+                seen = np.zeros((b, kvh, rows, n_table), np.int64)
+                for bi, hh, rr, pr in _blocks(b, kvh, rows, n_table, ps, dh, n_sm):
+                    assert len(rr) > 0 and len(pr) > 0, "an empty row tile or split"
+                    seen[bi, hh, rr.start:rr.stop, pr.start:pr.stop] += 1
+                assert (seen == 1).all(), (b, kvh, rows, n_table, ps, dh, n_sm)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("sq,g", [(65, 1), (32, 7), (512, 5)])
+def test_chunk_plan_of_a_rank_is_the_global_plan(tp, sq, g):
+    """A rank of a tp-way serve plans its chunk for the global KV heads
+    (``plan_kv_heads``), which gives it the one-device plan; planned for
+    its own kvh / tp heads it would split more finely whenever the grid is
+    short of a wave, and its sums would run in another order.  The
+    emulated kernel holds the ranks bit-equal to one device
+    (``test_emulated_chunk_tile_head_shards_at_the_global_plan``)."""
+    b, kvh = 3, 8
+    short = b * kvh * -(-sq * g // 64) < 132
+    finer = []
+    for n_table in (4, 13, 64, 264):
+        one = PA.plan_splits(b, kvh, sq * g, n_table, 16, 128)
+        own = PA.plan_splits(b, kvh // tp, sq * g, n_table, 16, 128)
+        assert own[0] == one[0] == -(-sq * g // 64)
+        assert own[2] >= one[2]
+        finer.append(own[2] > one[2])
+    assert any(finer) == short
+
+
 # ---------------------------------------------------------------------------
 # Split-KV partials and their merge
 # ---------------------------------------------------------------------------

@@ -397,6 +397,62 @@ def test_cuda_paged_attention_qwen2_prefill_chunk(cuda, qdt):
 
 
 @pytest.mark.gpu
+def test_cuda_paged_attention_cell_prefill_chunk(cuda, monkeypatch):
+    """qwen2.5-14b's prefill chunk in the benchmark's cell: 3 slots of sq
+    512 at positions 0, 1536 and 3584 (the last ending at 4096 of a
+    264-page table), 40 query heads over 8 KV heads of 128, int8 pages.
+    The chunk tile runs it (2560 rows per (slot, KV head)); its output is
+    within the f32 atol 1e-4 of the plain version and equal, bit for bit,
+    to the row tile's on the same inputs."""
+    b, sq, h, kvh, dh, ps, n_table = 3, 512, 40, 8, 128, 16, 264
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    q = torch.randn(b, sq, h, dh, generator=gen, device=cuda)
+    k = torch.randn(b * n_table + 1, ps, kvh, dh, generator=gen, device=cuda)
+    v = torch.randn(b * n_table + 1, ps, kvh, dh, generator=gen, device=cuda)
+    parts = quantize_kv(k, v)
+    table = (1 + torch.randperm(b * n_table, generator=gen, device=cuda)).to(
+        torch.int32).reshape(b, n_table)
+    pos = torch.tensor([0, 1536, 3584], dtype=torch.int32, device=cuda)
+    args = (q, parts["k"], parts["v"], table, pos)
+    kw = {"k_scale": parts["k_scale"], "v_scale": parts["v_scale"]}
+    before = dict(PA.TILE_LAUNCHES)
+    out = PA.paged_attention_decode(*args, **kw)
+    assert PA.TILE_LAUNCHES["chunk"] == before["chunk"] + 1
+    assert PA.TILE_LAUNCHES["row"] == before["row"]
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, PA.paged_attention_plain(*args, **kw), rtol=0,
+                               atol=1e-4)
+    monkeypatch.setattr(PA, "chunk_tile", lambda rows, dh, f32: False)
+    rows_out = PA.paged_attention_decode(*args, **kw)
+    assert PA.TILE_LAUNCHES["row"] == before["row"] + 1
+    assert torch.equal(out, rows_out)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_attention_tile_counter(cuda):
+    """``TILE_LAUNCHES`` counts the chunk tile on an f32 prefill chunk
+    (qwen2: sq 32 x g 7 = 224 rows) and the row tile on decode, on verify
+    (sq 4 x g 7 = 28 rows), on a bf16 chunk and at dh 256."""
+    q, k, v, table, pos = _long_table_inputs(5, n_table=8, sq=32)
+    pos[:] = [96, 64, 32, 0]
+    t = [torch.from_numpy(a).to(cuda) for a in (q, k, v, table, pos)]
+
+    def tiles(q_, k_, v_, tab, p_):
+        before = dict(PA.TILE_LAUNCHES)
+        PA.paged_attention_decode(q_, k_, v_, tab, p_)
+        torch.cuda.synchronize()
+        return tuple(PA.TILE_LAUNCHES[n] - before[n] for n in ("row", "chunk"))
+
+    assert tiles(*t) == (0, 1)
+    assert tiles(t[0][:, :4].contiguous(), *t[1:]) == (1, 0)
+    assert tiles(t[0][:, 0].contiguous(), *t[1:]) == (1, 0)
+    assert tiles(t[0].bfloat16(), t[1].bfloat16(), t[2].bfloat16(), *t[3:]) == (1, 0)
+    wide = torch.randn(4, 32, 14, 256, device=cuda)
+    kw = torch.randn(k.shape[0], 16, 2, 256, device=cuda)
+    assert tiles(wide, kw, kw.clone(), *t[3:]) == (1, 0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
                                 dict(causal=True, window=64, softcap=30.0)])

@@ -1,19 +1,33 @@
 """Where the attention kernels' time goes, on the card (H100).
 
     python3 tools/attention_probe.py [profile] [timeline] [flash-timeline]
-        [flash-grid] [sass] [order]
+        [flash-grid] [sass] [order] [cell[=PARENT_DIR]]
 
 - ``profile``: device time per CUDA kernel (torch.profiler, warm, mean of
   50 calls) of ``paged_attention`` at ``chip_smoke.py``'s timing shapes
-  (the partials kernel and the merge apart) and of ``flash_attention`` at
-  b 1, s 2048, 14/2 heads, dh 64, causal.
-- ``timeline``: the paged kernel's phases at decode and prefill, from an
-  instrumented copy of ``csrc`` built into ``build/attention_probe/``.
+  and at the prefill chunk of the benchmark's cell (the partials kernel and
+  the merge apart) and of ``flash_attention`` at b 1, s 2048, 14/2 heads,
+  dh 64, causal.
+- ``timeline``: the paged kernel's phases at decode and prefill, the
+  cell's chunk under both tiles, from an instrumented copy of ``csrc``
+  built into ``build/attention_probe/``.
   Thread 0 of each block records ``clock64`` after the prologue, after the
   first tile lands, after its dequantization and after the last tile's
-  update; block (0, 0, 0) also splits its first tile update into scores,
-  softmax (with the normalization of a single tile) and P.V.  Printed in microseconds at the SM clock that
-  ``nvidia-smi`` reports.
+  update, and sums over its key tiles the cycles spent waiting for a tile
+  to land, dequantizing (with the barrier after) and updating (scores,
+  softmax and P.V, each with the barrier after); ``%globaltimer`` at block
+  entry and exit gives the kernel's span, the mean block and the tail
+  (from the last block's start to the kernel's end).  Block (0, 0, 0) of
+  the row tile also splits its first tile update into scores, softmax
+  (with the normalization of a single tile) and P.V.  Printed in
+  microseconds at the SM clock that ``nvidia-smi`` reports.
+- ``cell``: the prefill chunk of the cell (qwen2.5-14b: 3 slots of sq 512,
+  40/8 heads of 128, int8 pages) at depths 0, 1536 and 3584 and at all
+  three at once: cold device time (median of 5 sets of 10, a 64 MB read
+  ahead of each run) of the chunk tile, the 64-row tile on the same
+  inputs and the plain version, beside the f32 bound; the two tiles' and,
+  with ``cell=PARENT_DIR`` (a ``git archive`` of an earlier commit), that
+  commit's kernel's outputs compared bit for bit.
 - ``flash-timeline``: ``flash_attention`` at the same shape, from an
   instrumented copy: per block, the cycles waiting for K/V tiles to land
   against the cycles updating with them, summed over its items; block
@@ -66,6 +80,15 @@ PAGED_SHAPES = (
     ("qwen2 prefill int4", "int4", 32, 14, 2, [96, 64, 32, 0]),
     ("gpt2 prefill int8", "int8", 32, 12, 12, [32, 0]),
 )
+# the benchmark's cell (qwen2.5-14b.prefill): chunks of 512 on int8 pages,
+# 40 query heads over 8 KV heads of 128, tables of 264 pages of 16
+CELL = dict(mode="int8", sq=512, heads=40, kvh=8, dh=128, n_tab=264)
+CELL_DEPTHS = (("depths 0/1536/3584", [0, 1536, 3584]), ("depth 0", [0] * 3),
+               ("depth 1536", [1536] * 3), ("depth 3584", [3584] * 3))
+# (label, page mode, sq, heads, kvh, positions, dh, table pages) of every
+# shape the profile and the timeline take
+ALL_SHAPES = tuple(s + (DH, N_TAB) for s in PAGED_SHAPES) + (
+    ("qwen2.5-14b prefill int8", "int8", 512, 40, 8, [0, 1536, 3584], 128, 264),)
 
 
 def smi(query: str) -> str:
@@ -74,27 +97,27 @@ def smi(query: str) -> str:
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def paged_inputs(mode, sq, heads, kvh, pos_list, dev):
+def paged_inputs(mode, sq, heads, kvh, pos_list, dev, dh=DH, n_tab=N_TAB):
     g = torch.Generator().manual_seed(7 + sq)
     b = len(pos_list)
-    q = torch.randn(b, sq, heads, DH, generator=g).to(dev)
-    k = torch.randn(b * N_TAB + 1, PS, kvh, DH, generator=g).to(dev)
-    v = torch.randn(b * N_TAB + 1, PS, kvh, DH, generator=g).to(dev)
+    q = torch.randn(b, sq, heads, dh, generator=g).to(dev)
+    k = torch.randn(b * n_tab + 1, PS, kvh, dh, generator=g).to(dev)
+    v = torch.randn(b * n_tab + 1, PS, kvh, dh, generator=g).to(dev)
     kw = {}
     if mode == "int8":
         parts = quantize_kv(k, v)
         k, v = parts["k"], parts["v"]
         kw = {"k_scale": parts["k_scale"], "v_scale": parts["v_scale"]}
     elif mode == "int4":
-        mask = np.zeros((kvh, DH), bool)
-        mask[:, [5, DH // 2 + 5]] = True
+        mask = np.zeros((kvh, dh), bool)
+        mask[:, [5, dh // 2 + 5]] = True
         red = torch.from_numpy(kvq.redist_from_mask(mask)).to(dev)
         parts = kvq.Int4KVQuantizer(red, red).quantize(k, v)
         k, v = parts["k"], parts["v"]
         kw = {"k_scale": parts["k_scale"], "v_scale": parts["v_scale"],
               "k_redist": red, "v_redist": red}
-    table = torch.arange(1, 1 + b * N_TAB, dtype=torch.int32,
-                         device=dev).reshape(b, N_TAB)
+    table = torch.arange(1, 1 + b * n_tab, dtype=torch.int32,
+                         device=dev).reshape(b, n_tab)
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     return (q, k, v, table, pos), kw
 
@@ -121,8 +144,8 @@ def profile(dev, card):
                 and e.self_device_time_total > 0]
         return "; ".join(f"{k} {t:.2f} us" for k, t in sorted(rows, key=lambda r: -r[1]))
 
-    for label, mode, sq, heads, kvh, pos in PAGED_SHAPES:
-        args, kw = paged_inputs(mode, sq, heads, kvh, pos, dev)
+    for label, mode, sq, heads, kvh, pos, dh, n_tab in ALL_SHAPES:
+        args, kw = paged_inputs(mode, sq, heads, kvh, pos, dev, dh, n_tab)
         print(f"profile {label}: {per_kernel(lambda: PA.paged_attention_decode(*args, **kw), 50)}"
               f"  [{card}]", flush=True)
     for dt in (torch.bfloat16, torch.float32):
@@ -149,29 +172,60 @@ def _patch(text: str, edits) -> str:
     return text
 
 
+TIMELINE_SLOTS = 16     # int64s a block records
+
+
 def timeline(dev, card):
     src = OUT / "timeline"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(build.CSRC, src)
     cu = (src / "paged_attention.cu").read_text()
+    clock_ns = ("  long long gt;\n  asm volatile(\"mov.u64 %0, %%globaltimer;\" : "
+                "\"=l\"(gt));\n")
     cu = _patch(cu, (
         ("  float scale, softcap;\n};\n\n// int4 code",
          "  float scale, softcap;\n  long long* dbg;\n};\nlong long* g_dbg = nullptr;\n\n"
          "// int4 code"),
-        ("  const int tid = threadIdx.x, warp = tid >> 5;\n  const int sp = blockIdx.x, rt = blockIdx.y;",
-         "  const long long c0 = clock64();\n  long long* dbg = p.dbg + 8ll * (blockIdx.x + gridDim.x * "
-         "(blockIdx.y + gridDim.y * blockIdx.z));\n  const int tid = threadIdx.x, warp = tid >> 5;\n"
-         "  const int sp = blockIdx.x, rt = blockIdx.y;"),
+        ("  const int tid = threadIdx.x, warp = tid >> 5;\n  const int sp = blockIdx.x;\n",
+         "  const long long c0 = clock64();\n  long long c_wait = 0, c_deq = 0, c_upd = 0, c_pv = 0, c_a = 0;\n"
+         f"  long long* dbg = p.dbg + {TIMELINE_SLOTS}ll * (blockIdx.x + gridDim.x * "
+         "(blockIdx.y + gridDim.y * blockIdx.z));\n"
+         "  {\n" + clock_ns + "  if (threadIdx.x == 0) dbg[8] = gt;\n  }\n"
+         "  const int tid = threadIdx.x, warp = tid >> 5;\n  const int sp = blockIdx.x;\n"),
         ("  __syncthreads();  // page ids (and the rest) are set up\n",
          "  __syncthreads();  // page ids (and the rest) are set up\n  if (tid == 0) dbg[0] = clock64() - c0;\n"),
+        ("    const int t0 = key_begin + it * kBk, nk = min(kBk, key_end - t0);\n    if constexpr (kScaled) {\n"
+         "      if (tid < 2 * kBk) sc[tid] = pending;",
+         "    const int t0 = key_begin + it * kBk, nk = min(kBk, key_end - t0);\n    c_a = clock64();\n"
+         "    if constexpr (kScaled) {\n      if (tid < 2 * kBk) sc[tid] = pending;"),
         ("    __syncthreads();  // tile it's rows have landed; tile it - 1 is consumed\n",
          "    __syncthreads();  // tile it's rows have landed; tile it - 1 is consumed\n"
-         "    if (tid == 0 && it == 0) dbg[1] = clock64() - c0;\n"),
-        ("    __syncthreads();\n    if (warp * 16 < rows_t) {\n      st.consume(",
-         "    __syncthreads();\n    if (tid == 0 && it == 0) dbg[2] = clock64() - c0;\n"
-         "    if (warp * 16 < rows_t) {\n      st.consume("),
+         "    if (tid == 0 && it == 0) dbg[1] = clock64() - c0;\n"
+         "    c_wait += clock64() - c_a;\n    c_a = clock64();\n"),
+        ("      dequant(ks, rk, sc, red);\n      __syncthreads();\n",
+         "      dequant(ks, rk, sc, red);\n      __syncthreads();\n"
+         "      if (tid == 0 && it == 0) dbg[2] = clock64() - c0;\n"
+         "      c_deq += clock64() - c_a;\n      c_a = clock64();\n"),
+        ("      __syncthreads();  // every warp is done with K\n",
+         "      __syncthreads();  // every warp is done with K\n"
+         "      c_upd += clock64() - c_a;\n      c_a = clock64();\n"),
+        ("      dequant(vs, rv, sc + kBk, red + kDh);\n      __syncthreads();\n",
+         "      dequant(vs, rv, sc + kBk, red + kDh);\n      __syncthreads();\n"
+         "      c_deq += clock64() - c_a;\n      c_a = clock64();\n"),
+        ("      if (warp * 16 < rows_t) st.accumulate(s, vs, nk);\n",
+         "      if (warp * 16 < rows_t) st.accumulate(s, vs, nk);\n      c_pv += clock64() - c_a;\n"
+         "      c_upd += clock64() - c_a;\n"),
+        ("      __syncthreads();\n      if (warp * 16 < rows_t) {\n        st.consume(",
+         "      __syncthreads();\n      if (tid == 0 && it == 0) dbg[2] = clock64() - c0;\n"
+         "      c_deq += clock64() - c_a;\n      c_a = clock64();\n"
+         "      if (warp * 16 < rows_t) {\n        st.consume("),
+        ("                   p.n_split == 1 && n_tiles == 1);\n      }\n",
+         "                   p.n_split == 1 && n_tiles == 1);\n      }\n"
+         "      c_upd += clock64() - c_a;\n"),
         ("  if (warp * 16 >= rows_t) return;\n  st.finish();",
-         "  if (tid == 0) dbg[3] = clock64() - c0;\n  if (warp * 16 >= rows_t) return;\n  st.finish();"),
+         "  if (tid == 0) {\n    dbg[3] = clock64() - c0;\n    dbg[4] = c_wait;\n    dbg[5] = c_deq;\n"
+         "    dbg[6] = c_upd;\n    dbg[7] = c_pv;\n" + clock_ns + "    dbg[9] = gt;\n  }\n"
+         "  if (warp * 16 >= rows_t) return;\n  st.finish();"),
         ("  p.scale = scale, p.softcap = softcap;\n  cudaStream_t st",
          "  p.scale = scale, p.softcap = softcap;\n  p.dbg = g_dbg;\n  cudaStream_t st"),
     ))
@@ -199,15 +253,21 @@ def timeline(dev, card):
     so.probe_set.argtypes = [ctypes.c_void_p]
     saved = build._LAUNCHERS.get("paged_attention")
     build._LAUNCHERS["paged_attention"] = fn
-    dbg = torch.zeros(8 * 8192, dtype=torch.int64, device=dev)
+    dbg = torch.zeros(TIMELINE_SLOTS * 8192, dtype=torch.int64, device=dev)
     so.probe_set(dbg.data_ptr())
     mhz = float(smi("clocks.sm"))
     flush = torch.zeros(16 << 20, device=dev)
+    chunk_tile = PA.chunk_tile
+    shapes = [s + ("",) for s in ALL_SHAPES] + [ALL_SHAPES[-1] + ("row tile",)]
     try:
-        for label, mode, sq, heads, kvh, pos in PAGED_SHAPES:
-            args, kw = paged_inputs(mode, sq, heads, kvh, pos, dev)
-            n_rt, _, n_split = PA.plan_splits(len(pos), kvh, sq * heads // kvh,
-                                              N_TAB, PS, DH, build.sm_count(dev))
+        for label, mode, sq, heads, kvh, pos, dh, n_tab, forced in shapes:
+            args, kw = paged_inputs(mode, sq, heads, kvh, pos, dev, dh, n_tab)
+            if forced:
+                PA.chunk_tile = lambda rows, dh_, f32: False
+                label = f"{label} [{forced}]"
+            rows = sq * heads // kvh
+            n_rt, _, n_split = PA.plan_splits(len(pos), kvh, rows, n_tab, PS, dh,
+                                              build.sm_count(dev))
             n_blk = n_split * n_rt * len(pos) * kvh
             for cold in (False, True):
                 PA.paged_attention_decode(*args, **kw)
@@ -217,19 +277,32 @@ def timeline(dev, card):
                 dbg.zero_()
                 PA.paged_attention_decode(*args, **kw)
                 torch.cuda.synchronize()
-                d = dbg[:8 * n_blk].view(n_blk, 8).cpu().numpy()[:, :4] / mhz
+                d = dbg[:TIMELINE_SLOTS * n_blk].view(n_blk, TIMELINE_SLOTS).cpu().numpy()
                 d = d[d[:, 0] > 0]          # empty splits record nothing
+                cyc = d[:, :8] / mhz
+                start, end = d[:, 8], d[:, 9]
+                span = (end.max() - start.min()) / 1e3
                 ph = (ctypes.c_longlong * 4)()
                 so.probe_phases(ph)
+                work = cyc[:, 4:7].sum(1)
                 print(f"timeline {label} ({'cold' if cold else 'warm'} L2, "
                       f"{n_blk} blocks, {len(d)} non-empty), us since block "
-                      f"entry, mean (max): prologue {d[:, 0].mean():.2f}, "
-                      f"first tile landed {d[:, 1].mean():.2f}, dequantized "
-                      f"{d[:, 2].mean():.2f}, last tile updated {d[:, 3].mean():.2f} "
-                      f"({d[:, 3].max():.2f}); block 0's first update: scores "
-                      f"{(ph[1] - ph[0]) / mhz:.2f}, softmax {(ph[2] - ph[1]) / mhz:.2f}, "
+                      f"entry, mean (max): prologue {cyc[:, 0].mean():.2f}, "
+                      f"first tile landed {cyc[:, 1].mean():.2f}, dequantized "
+                      f"{cyc[:, 2].mean():.2f}, last tile updated {cyc[:, 3].mean():.2f} "
+                      f"({cyc[:, 3].max():.2f}); block sums: waiting "
+                      f"{cyc[:, 4].sum() / work.sum():.1%}, dequantizing "
+                      f"{cyc[:, 5].sum() / work.sum():.1%}, updating "
+                      f"{cyc[:, 6].sum() / work.sum():.1%} (P.V of the chunk tile "
+                      f"{cyc[:, 7].sum() / work.sum():.1%}); span {span:.1f} us, block "
+                      f"mean {(end - start).mean() / 1e3:.1f} (max "
+                      f"{(end - start).max() / 1e3:.1f}), last start to end "
+                      f"{(end.max() - start.max()) / 1e3:.1f}; block 0's first update: "
+                      f"scores {(ph[1] - ph[0]) / mhz:.2f}, softmax {(ph[2] - ph[1]) / mhz:.2f}, "
                       f"P.V {(ph[3] - ph[2]) / mhz:.2f}  [{card}]", flush=True)
+            PA.chunk_tile = chunk_tile
     finally:
+        PA.chunk_tile = chunk_tile
         if saved is None:
             build._LAUNCHERS.pop("paged_attention", None)
         else:
@@ -499,6 +572,98 @@ def order(dev, card):
               f"{float((out == plain).float().mean()):.4f}  [{card}]", flush=True)
 
 
+def cold_ms(fn, flush, sets=5, iters=10):
+    """Median over ``sets`` of the mean device time of ``iters`` runs, each
+    after a 64 MB read that evicts L2 and a sleep that keeps the host's
+    enqueue out of the events; and the sets' range."""
+    fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(sets):
+        total = 0.0
+        for _ in range(iters):
+            flush.sum()
+            torch.cuda._sleep(200_000)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            total += a.elapsed_time(b)
+        means.append(total / iters)
+    means.sort()
+    return means[len(means) // 2], means[0], means[-1]
+
+
+# the C launcher's arguments before the tile argument (index 21) came in
+OLD_PAGED_SIGNATURE = build.SIGNATURES["paged_attention"][:21] + \
+    build.SIGNATURES["paged_attention"][22:]
+
+
+def cell(dev, card, parent=None):
+    """The cell's prefill chunk: the two tiles (and an earlier commit's
+    kernel) bit for bit, and their cold times beside the plain version's
+    and the bound."""
+    parent_fn = None
+    if parent:
+        src = Path(parent).resolve() / "src" / "repro_torch" / "csrc"
+        lib = OUT / "parent_csrc"
+        shutil.rmtree(lib, ignore_errors=True)
+        shutil.copytree(src, lib)
+        parent_fn = _nvcc(lib, "paged_attention").paged_attention_launch
+        parent_fn.argtypes = OLD_PAGED_SIGNATURE
+        parent_fn.restype = ctypes.c_int
+    flush = torch.zeros(16 << 20, device=dev)
+    c = CELL
+    chunk_tile, saved = PA.chunk_tile, build.launcher("paged_attention")
+
+    def run(tile, fn=None):
+        """paged_attention_decode under ``tile`` ("chunk" or "row"), through
+        ``fn`` in place of this tree's launcher where given"""
+        PA.chunk_tile = chunk_tile if tile == "chunk" else (lambda r, d, f: False)
+        if fn is not None:
+            build._LAUNCHERS["paged_attention"] = lambda *a: fn(*(a[:21] + a[22:]))
+        try:
+            return PA.paged_attention_decode(*args, **kw)
+        finally:
+            PA.chunk_tile = chunk_tile
+            build._LAUNCHERS["paged_attention"] = saved
+
+    for label, pos in CELL_DEPTHS:
+        args, kw = paged_inputs(c["mode"], c["sq"], c["heads"], c["kvh"], pos, dev,
+                                c["dh"], c["n_tab"])
+        b = len(pos)
+        pairs = sum(p + i + 1 for p in pos for i in range(c["sq"]))
+        ops = 4 * c["dh"] * c["heads"] * pairs
+        n_read = sum(min(c["n_tab"], (p + c["sq"] - 1) // PS + 1) for p in pos)
+        nbytes = (n_read * PS * c["kvh"] * 2 * (c["dh"] + 4)
+                  + 2 * 4 * b * c["sq"] * c["heads"] * c["dh"])
+        bound_ms = max(ops / 67e12, nbytes / 3.35e12) * 1e3
+        out = run("chunk")
+        rows_out = run("row")
+        plain = PA.paged_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        line = (f"cell {label}: chunk vs row tile bit-equal "
+                f"{bool(torch.equal(out, rows_out))}, max |chunk - plain| "
+                f"{float((out - plain).abs().max()):.3e}")
+        if parent_fn is not None:
+            old = run("row", parent_fn)
+            torch.cuda.synchronize()
+            line += (f", chunk vs {parent} bit-equal {bool(torch.equal(out, old))} "
+                     f"(bits {float((out.view(torch.int32) == old.view(torch.int32)).float().mean()):.6f})")
+        times = {"chunk": cold_ms(lambda: run("chunk"), flush),
+                 "row": cold_ms(lambda: run("row"), flush)}
+        if parent_fn is not None:
+            times["parent"] = cold_ms(lambda: run("row", parent_fn), flush)
+        times["plain"] = cold_ms(lambda: PA.paged_attention_plain(*args, **kw), flush,
+                                 sets=3, iters=3)
+        line += "; cold ms: " + ", ".join(
+            f"{k} {t[0]:.4f} [{t[1]:.4f}-{t[2]:.4f}] ({100 * bound_ms / t[0]:.1f} % of bound)"
+            for k, t in times.items())
+        print(f"{line}; bound {bound_ms:.4f} ms (f32 operations)  [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("attention_probe: needs a CUDA device", file=sys.stderr)
@@ -509,8 +674,12 @@ def main() -> int:
     build.build(["paged_attention", "flash_attention"])
     OUT.mkdir(parents=True, exist_ok=True)
     todo = sys.argv[1:] or ["profile", "timeline", "flash-timeline", "flash-grid",
-                            "sass", "order"]
+                            "sass", "order", "cell"]
     for what in todo:
+        what, _, arg = what.partition("=")
+        if what == "cell":
+            cell(dev, card, arg or None)
+            continue
         {"profile": profile, "timeline": timeline, "flash-timeline": flash_timeline,
          "flash-grid": flash_grid, "sass": sass, "order": order}[what](dev, card)
     return 0
