@@ -2735,7 +2735,8 @@ def main() -> int:
         prev = (dispatch.set_fused_impl(fused), PA.set_paged_impl(paged))
         try:
             with torch.no_grad():
-                out, _ = T.prefill_chunk_paged(cfg, engine.params, toks, pool.kv,
+                # the raw tree: the artifact's stubs its fused sites' weights
+                out, _ = T.prefill_chunk_paged(cfg, params, toks, pool.kv,
                                                cal_table, zero2, zero2, full32,
                                                ctx)
         finally:
@@ -3343,7 +3344,9 @@ def main() -> int:
         scale; (b') on the served ``mode`` pages, where an ulp of K or V
         flips a code on a rounding boundary and later layers carry the
         flip, within NUDGE_FACTOR x the spread of the plain version
-        against itself with every attention output nudged one ulp."""
+        against itself with every attention output nudged one ulp.
+        ``params_`` is the raw tree: an artifact's stubs its fused sites'
+        weights, which the fp gates read."""
         with ExpertLog() as la:
             ka = step_logits(c, params_, ctx_, mode, kv_calib, verify=verify)
         with ExpertLog() as lr:
@@ -3408,10 +3411,10 @@ def main() -> int:
     p14, a14, c14 = wide_artifact(q14, "qwen2.5-14b")
     e14 = ServeEngine(q14, a14, max_batch=4, s_max=256, prefill_chunk=32,
                       kv_mode="int8", device=dev)
-    gates14 = in_situ(q14, e14.params, e14.ctx, "int8", None, "qwen2.5-14b")
+    gates14 = in_situ(q14, p14, e14.ctx, "int8", None, "qwen2.5-14b")
     # (c) the head is lm_head: the same model read with a tied head differs
-    untied = step_logits(q14, e14.params, FpCtx(), "int8")[0]
-    tied = step_logits(q14.replace(tie_embeddings=True), e14.params, FpCtx(),
+    untied = step_logits(q14, p14, FpCtx(), "int8")[0]
+    tied = step_logits(q14.replace(tie_embeddings=True), p14, FpCtx(),
                        "int8")[0]
     head_gap = float((untied - tied).abs().max())
     if not head_gap > 0.1 * float(untied.abs().max()):
@@ -3441,7 +3444,7 @@ def main() -> int:
     p9, a9, c9 = wide_artifact(g9, "gemma2-9b")
     e9 = ServeEngine(g9, a9, max_batch=4, s_max=256, prefill_chunk=32,
                      kv_mode="int4", spec_mode="ngram", spec_k=4, device=dev)
-    gates9 = in_situ(g9, e9.params, e9.ctx, "int4", c9, "gemma2-9b",
+    gates9 = in_situ(g9, p9, e9.ctx, "int4", c9, "gemma2-9b",
                      verify=True)
     # served with the sandwich post-norms' gains at SERVE_BRANCH_SCALE (the
     # residual stream then follows the scaled embedding and the greedy
@@ -3621,7 +3624,7 @@ def main() -> int:
         for site in ("layer0/moe_up", "layer0/moe_down"):
             if eng.ctx.kernel_buffers[site]["w_int"].shape[0] != c.n_experts:
                 raise AssertionError(f"{label}: {site} is not per expert")
-        gates = in_situ(c, eng.params, eng.ctx, mode,
+        gates = in_situ(c, params_, eng.ctx, mode,
                         calib_ if mode == "int4" else None, label,
                         verify=spec)
         step_launches = decode_launches(c, eng.params, eng.ctx, mode,

@@ -80,9 +80,8 @@ from repro_torch.parallel import sharding as SH
 from repro_torch.parallel.act_sharding import (set_activation_sharding,
                                                set_cache_update_mode)
 from repro_torch.parallel.spmd import make_sharded_train_step
-from repro_torch.quantize import (_ROOT_OF, QuantArtifact, _fused_sites,
-                                  _layer_of, _site_leaf, _with_leaf,
-                                  build_artifact, split_site)
+from repro_torch.quantize import (QuantArtifact, build_artifact, fused_sites,
+                                  stub_weights)
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "chiprun_out" / "dryrun"
 
@@ -141,7 +140,7 @@ def fused_artifact(cfg, params, masks: Dict[str, np.ndarray],
     policy = SitePolicy.uniform(ST.MUXQ_FUSED_SERVE)
     if torch.device(device).type == "meta":
         art = QuantArtifact(policy=policy, masks=dict(masks))
-        for site, _, w in _fused_sites(cfg, params, policy):
+        for site, _, w in fused_sites(cfg, params, policy):
             n_out = int(masks[site].sum()) if site in masks else 0
             art.kernel_buffers[site] = dispatch.abstract_site_buffer(
                 tuple(w.shape), n_out, device=device)
@@ -151,27 +150,6 @@ def fused_artifact(cfg, params, masks: Dict[str, np.ndarray],
     art.kernel_buffers = {s: dispatch.buffer_to(b, device)
                           for s, b in art.kernel_buffers.items()}
     return art
-
-
-def stub_site_weights(params, sites) -> dict:
-    """``params`` with the raw weight of each fused site replaced by an
-    inert [1, ...] stub: a fused deployment keeps only the packed buffers
-    (``quantize.apply_pack_target(..., "fused")``)."""
-    params = dict(params)
-    for site in sites:
-        kind, i, base = split_site(site)
-        root = _ROOT_OF[kind]
-        layer = _layer_of(params, kind, i)
-        path, w = _site_leaf(layer, base)
-        new = _with_leaf(layer, path,
-                         torch.zeros((1,) * w.ndim, dtype=w.dtype,
-                                     device=w.device))
-        if isinstance(params[root], list):
-            params[root] = list(params[root])
-            params[root][i] = new
-        else:
-            params[root] = new
-    return params
 
 
 def serve_program(cfg, shape, mesh, quant: str, device="meta", seed: int = 0):
@@ -192,7 +170,7 @@ def serve_program(cfg, shape, mesh, quant: str, device="meta", seed: int = 0):
     if quant != "fp":
         masks = SP.eager_masks(cfg, SP.synthetic_qparams(cfg))
         art = fused_artifact(cfg, params, masks, dev)
-        params = stub_site_weights(params, art.kernel_buffers)
+        params = stub_weights(params, fused_sites(cfg, params, art.policy))
         held = art.kernel_buffers
     b = _rank_rows(mesh, shape.global_batch)
     if shape.mode == "prefill":

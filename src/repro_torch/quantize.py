@@ -33,7 +33,8 @@ from repro_torch.core.context import QuantCtx, _is_prequant
 from repro_torch.core.muxq import SMOOTH_METHODS, QuantConfig
 from repro_torch.core.outliers import CalibrationStats
 from repro_torch.core.policy import SitePolicy, as_policy
-from repro_torch.core.prequant import prequantize_params
+from repro_torch.core.prequant import (leaf_stacks, prequantize_params,
+                                       site_leaves, stub_leaf, with_leaf)
 from repro_torch.kernels import dispatch
 
 _FORMAT_VERSION = 3
@@ -42,29 +43,7 @@ _GROUPS = ("masks", "act_absmax", "smooth_factors", "scan_qparams",
 
 PACK_TARGETS = ("both", "fused", "tree")
 
-# ctx site base name -> weight-leaf path inside one layer's params.  In MoE
-# layers the shared expert runs through mlp() (eager sites
-# layer{i}/mlp_up|down) but its weights live under moe/shared/: the
-# fallback path.
-SITE_WEIGHT_PATH = {
-    "attn_qkv": ("attn", "wqkv"), "attn_out": ("attn", "wo"),
-    "cross_q": ("cross", "wq"), "cross_kv": ("cross", "wkv"),
-    "cross_out": ("cross", "wo"),
-    "mlp_up": ("mlp", "wi"), "mlp_down": ("mlp", "wo"),
-    "moe_up": ("moe", "wi"), "moe_down": ("moe", "wo"),
-    "ssm_in_zx": ("ssm", "in_zx"), "ssm_in_bcdt": ("ssm", "in_bcdt"),
-    "ssm_out": ("ssm", "out_proj"),
-}
-_SITE_WEIGHT_FALLBACK = {
-    "mlp_up": ("moe", "shared", "wi"), "mlp_down": ("moe", "shared", "wo"),
-}
-
 _SITE_RE = re.compile(r"^(layer|enc|shared)(\d+)/(.+)$")
-
-# eager site prefix kind -> the params root holding its layers: a list of
-# per-layer dicts, or (the hybrid's shared block) one dict that every
-# ``shared{j}/`` instance runs
-_ROOT_OF = {"layer": "layers", "enc": "enc_layers", "shared": "shared"}
 
 
 def split_site(site: str):
@@ -73,52 +52,6 @@ def split_site(site: str):
     if m is None:
         return None, None, site
     return m.group(1), int(m.group(2)), m.group(3)
-
-
-def _layer_of(params, kind: str, idx: int) -> Optional[dict]:
-    """The per-layer params an eager site of ``kind``/``idx`` runs on (the
-    shared block for every ``shared{j}/``), or None."""
-    root = params.get(_ROOT_OF.get(kind))
-    if isinstance(root, list):
-        return root[idx] if idx < len(root) else None
-    return root
-
-
-def _site_leaf(layer: Optional[dict], base: str):
-    """(path, leaf) of the weight an eager site base consumes in one
-    layer's params ([in_ch, out]; [E, in_ch, out] at an expert site), or
-    None where the layer has no such leaf."""
-    for path in (SITE_WEIGHT_PATH.get(base), _SITE_WEIGHT_FALLBACK.get(base)):
-        if path is None:
-            continue
-        node = layer
-        for key in path:
-            node = node.get(key) if isinstance(node, dict) else None
-        if node is not None:
-            return path, node
-    return None
-
-
-def _with_leaf(tree: dict, path, value) -> dict:
-    """A copy of ``tree`` with the leaf at ``path`` replaced (the dicts
-    along the path copied; the caller's tree stays as it was)."""
-    if len(path) == 1:
-        return {**tree, path[0]: value}
-    return {**tree, path[0]: _with_leaf(tree[path[0]], path[1:], value)}
-
-
-def _site_weight(params, site: str) -> Optional[torch.Tensor]:
-    """The 2-D [in_ch, flattened out] weight an eager site of the port's
-    params consumes (an expert site's [E, in_ch, out] with the experts
-    folded into the out dim), or None when the site has no raw leaf."""
-    kind, idx, base = split_site(site)
-    if kind is None:
-        return None
-    found = _site_leaf(_layer_of(params, kind, idx), base)
-    if found is None or _is_prequant(found[1]):
-        return None
-    w = found[1]
-    return w.movedim(-2, 0).reshape(w.shape[-2], -1)
 
 
 def _flatten_nested(group: Dict[str, Any]) -> Dict[str, np.ndarray]:
@@ -234,9 +167,8 @@ def apply_pack_target(artifact: QuantArtifact, pack_target: str) -> QuantArtifac
 
       * ``"both"``  — keep both (the artifact serves either backend);
       * ``"fused"`` — a weight leaf whose every layer is fused keeps only
-        the kernel buffers: its tree leaves shrink to inert all-ones-shape
-        stubs (stacked: [L, 1, 1]), so misrouting it to the fake backend
-        fails on shape, not silently on garbage;
+        the kernel buffers: its tree leaves shrink to inert stubs
+        (:func:`stub_weights`; stacked: [L, 1, 1]);
       * ``"tree"``  — drop the kernel buffers and the ``@fused`` scan
         stacks, and rewrite the policy's fused backends to ``fake``.
     """
@@ -259,30 +191,29 @@ def apply_pack_target(artifact: QuantArtifact, pack_target: str) -> QuantArtifac
         return dataclasses.replace(artifact, meta=meta)
     if isinstance(params["layers"], dict):      # loaded from a bundle
         params = from_jax_params(None, params, "cpu")
-    params = dict(params)
-    # the stacks only: the hybrid's shared block keeps its copy, as in the
-    # reference (its instance count is not the leaf's)
-    for root, kind in (("layers", "layer"), ("enc_layers", "enc")):
-        if root not in params:
-            continue
-        layers = list(params[root])
-        for base in SITE_WEIGHT_PATH:
-            if not all(f"{kind}{i}/{base}" in artifact.kernel_buffers
-                       for i in range(len(layers))):
-                continue                # partial fused coverage: keep the copy
-            found = [_site_leaf(lp, base) for lp in layers]
-            if not all(f is not None and _is_prequant(f[1]) for f in found):
-                continue                # not packed (fp site, shared expert)
-            for i, (path, leaf) in enumerate(found):
-                stub = {"q": torch.zeros((1,) * leaf["q"].ndim,
-                                         dtype=torch.int8,
-                                         device=leaf["q"].device),
-                        "s": torch.ones((1,) * leaf["s"].ndim,
-                                        dtype=torch.float32,
-                                        device=leaf["s"].device)}
-                layers[i] = _with_leaf(layers[i], path, stub)
-        params[root] = layers
-    return dataclasses.replace(artifact, params=params, meta=meta)
+    return dataclasses.replace(
+        artifact, params=stub_weights(
+            params, _fused_stacks(params, artifact.kernel_buffers)),
+        meta=meta)
+
+
+def stub_weights(params, found) -> dict:
+    """``params`` with the leaf of each (site, path, leaf) of ``found``
+    (the walker's, :func:`prequant.site_leaves`) replaced by its inert
+    stub (:func:`prequant.stub_leaf`); the caller's tree stays as it
+    was."""
+    for _, path, leaf in found:
+        params = with_leaf(params, path, stub_leaf(leaf))
+    return params
+
+
+def _fused_stacks(params, sites) -> list:
+    """The walker's triples of every decoder or encoder leaf whose every
+    layer's site is in ``sites``: what a fused deployment stubs.  The
+    hybrid's shared block keeps its leaf, as in the reference (its use
+    count is not its layer count), and so does the MoE shared expert."""
+    return [f for found in leaf_stacks(params).values()
+            if all(site in sites for site, _, _ in found) for f in found]
 
 
 # ---------------------------------------------------------------------------
@@ -330,26 +261,23 @@ def _stack_qparams(cfg, masks: Dict[str, np.ndarray],
     return out
 
 
-def _fused_sites(cfg, params, policy: SitePolicy):
-    """(eager site, resolved cfg, weight leaf) for every site of the port's
-    params whose policy resolves to the fused backend, stack by stack:
-    the decoder's ``layer{i}/``, the encoder's ``enc{i}/`` and the
-    hybrid's ``shared{j}/``, one buffer a use of the shared block (each
-    with that use's mask)."""
+def _shared_uses(cfg) -> int:
+    """How many times the hybrid's shared block runs (``shared{j}/``)."""
     from repro_torch.models.attention import n_attn_layers
 
-    stacks = (("layer", cfg.n_layers), ("enc", cfg.n_enc_layers),
-              ("shared", n_attn_layers(cfg) if cfg.shared_attn_every else 0))
-    for kind, n in stacks:
-        for base in SITE_WEIGHT_PATH:
-            for i in range(n):
-                found = _site_leaf(_layer_of(params, kind, i), base)
-                if found is None:
-                    continue
-                site = f"{kind}{i}/{base}"
-                scfg = policy.resolve(site)
-                if scfg.method != "fp" and dispatch.site_backend(scfg) == "fused":
-                    yield site, scfg, found[1]
+    return n_attn_layers(cfg) if cfg.shared_attn_every else 0
+
+
+def fused_sites(cfg, params, policy: SitePolicy):
+    """The walker's (eager site, path, leaf) of every site of the port's
+    params whose policy resolves to the fused backend: the decoder's
+    ``layer{i}/``, the encoder's ``enc{i}/`` and the hybrid's
+    ``shared{j}/``, one buffer a use of the shared block (each with that
+    use's mask)."""
+    for found in site_leaves(params, _shared_uses(cfg)):
+        scfg = policy.resolve(found[0])
+        if scfg.method != "fp" and dispatch.site_backend(scfg) == "fused":
+            yield found
 
 
 def pack_kernel_buffers(cfg, params, policy, masks: Dict[str, np.ndarray],
@@ -363,7 +291,8 @@ def pack_kernel_buffers(cfg, params, policy, masks: Dict[str, np.ndarray],
     runtime applies X/s."""
     policy = as_policy(policy)
     buffers: Dict[str, Dict[str, np.ndarray]] = {}
-    for site, scfg, w in _fused_sites(cfg, params, policy):
+    for site, _, w in fused_sites(cfg, params, policy):
+        scfg = policy.resolve(site)
         mask = masks.get(site)
         if scfg.method in ("muxq", "muxq_smooth") and mask is None:
             raise ValueError(
@@ -443,6 +372,7 @@ def quantize_model(cfg, params, calib: Union[None, CalibrationStats, Iterable],
     masks: Dict[str, np.ndarray] = {}
     absmax: Dict[str, np.ndarray] = {}
     factors: Dict[str, np.ndarray] = {}
+    weights = {site: w for site, _, w in site_leaves(params, _shared_uses(cfg))}
     for site, st in (stats.sites.items() if stats else ()):
         scfg = policy.resolve(site)
         if scfg.method == "fp":
@@ -451,13 +381,15 @@ def quantize_model(cfg, params, calib: Union[None, CalibrationStats, Iterable],
         if scfg.outlier_mode == "static":
             masks[site] = np.asarray(st.mask(scfg.outlier_threshold))
         if scfg.method in SMOOTH_METHODS:
-            w2 = _site_weight(params, site)
-            if w2 is None:
+            w = weights.get(site)
+            if w is None or _is_prequant(w):
                 if prequantize:
                     raise ValueError(
                         f"cannot fold smoothing for site {site!r}: no "
                         "addressable weight leaf (use prequantize=False)")
                 continue
+            # [in_ch, out] (an expert site's experts folded into out)
+            w2 = w.movedim(-2, 0).reshape(w.shape[-2], -1)
             factors[site] = SQ.smoothing_factors(
                 torch.from_numpy(absmax[site]), w2,
                 scfg.smooth_alpha).cpu().numpy()
@@ -465,7 +397,11 @@ def quantize_model(cfg, params, calib: Union[None, CalibrationStats, Iterable],
     packed = None
     buffers: Dict[str, Dict[str, np.ndarray]] = {}
     if prequantize:
-        packed = prequantize_params(cfg, params, policy=policy,
+        tree = params
+        if pack_target == "fused":      # the leaves it stubs: never quantized
+            fused = {site for site, _, _ in fused_sites(cfg, params, policy)}
+            tree = stub_weights(params, _fused_stacks(params, fused))
+        packed = prequantize_params(cfg, tree, policy=policy,
                                     smooth_factors=factors)
         buffers = pack_kernel_buffers(cfg, params, policy, masks, factors)
     art = QuantArtifact(
@@ -491,13 +427,16 @@ def build_artifact(cfg, params, policy, masks: Dict[str, np.ndarray], *,
     """A servable artifact from the port's params and calibrated masks: the
     policy, the masks of its quantized sites, their packed kernel buffers
     and, for int4 KV pages, ``kv_calib``.  The raw params ride along as the
-    weights to serve with (fused sites never read them)."""
+    weights to serve with, each leaf of a stack fused in every layer an
+    inert stub, as the ``fused`` pack target keeps it; the caller's tree
+    stays as it was."""
     policy = as_policy(policy)
     buffers = pack_kernel_buffers(cfg, params, policy, masks)
     kept = {s: np.asarray(m) for s, m in masks.items()
             if policy.resolve(s).method != "fp"}
     return QuantArtifact(policy=policy, masks=kept, kernel_buffers=buffers,
-                         params=params,
+                         params=stub_weights(params,
+                                             _fused_stacks(params, buffers)),
                          meta={"n_sites": len(kept),
                                "n_fused_sites": len(buffers)},
                          kv_calib=dict(kv_calib or {}))

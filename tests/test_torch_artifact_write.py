@@ -15,6 +15,7 @@ finds outliers.  Two ways of comparing:
     act_absmax and kv_calib amax within CALIB_RTOL, masks equal except on
     channels whose abs-max lies within CALIB_RTOL of the threshold.
 """
+import dataclasses
 import json
 
 import jax
@@ -39,8 +40,9 @@ from repro_torch.core.muxq import QuantConfig
 from repro_torch.core.policy import SitePolicy
 from repro_torch.core.prequant import prequantize_params
 from repro_torch.kernels import dispatch
-from repro_torch.quantize import (QuantArtifact, _stack_qparams, load_artifact,
-                                  pack_kernel_buffers, quantize_model)
+from repro_torch.quantize import (QuantArtifact, _stack_qparams, build_artifact,
+                                  load_artifact, pack_kernel_buffers,
+                                  quantize_model)
 from repro_torch.serve.engine import Request, ServeEngine
 
 FACTOR_ULPS = 2
@@ -291,6 +293,44 @@ def test_saving_a_loaded_bundle_with_another_pack_target(model, tmp_path):
         assert tf.keys() == jf.keys(), group
         for k in jf:
             np.testing.assert_array_equal(tf[k], jf[k], err_msg=f"{group}/{k}")
+
+
+def test_build_artifact_keeps_no_full_size_weight_of_a_fused_site(model):
+    """``build_artifact`` under a policy fused at every site but
+    ``mlp_down``: each fused site's raw leaf is an inert [1, 1] stub (its
+    kernel buffer carries the weight), ``mlp_down`` keeps its full weight
+    (the fake backend reads it), the artifact serves the stream the
+    unstubbed tree serves, and the caller's params stay as they were."""
+    tcfg = model["tcfg"]
+    params = from_jax_params(tcfg, model["params"], "cpu")
+    before = [{mod: dict(lp[mod]) for mod in ("attn", "mlp")}
+              for lp in params["layers"]]
+    policy = SitePolicy(default=FUSED,
+                        rules=(("*mlp_down", FUSED.replace(backend="fake")),))
+    art = build_artifact(tcfg, params, policy,
+                         _port_stats(model["jstats"]).masks())
+    assert set(art.kernel_buffers) == {
+        f"layer{i}/{b}" for i in range(tcfg.n_layers)
+        for b in ("attn_qkv", "attn_out", "mlp_up")}
+    for i, (lp, was) in enumerate(zip(art.params["layers"], before)):
+        for mod, key in WEIGHTS:
+            leaf, raw = lp[mod][key], was[mod][key]
+            if (mod, key) == ("mlp", "wo"):
+                assert leaf is raw
+            else:
+                assert leaf.shape == (1, 1) and leaf.dtype == raw.dtype
+                assert not leaf.any(), (i, mod, key)
+            assert params["layers"][i][mod][key] is raw, (i, mod, key)
+            assert raw.shape[0] > 1 and raw.shape[1] > 1
+    assert art.params["embed"] is params["embed"]
+    streams = []
+    for served in (art, dataclasses.replace(art, params=params)):
+        eng = ServeEngine(tcfg, served, max_batch=3, s_max=48, prefill_chunk=8,
+                          kv_mode="fp", cache_dtype=torch.float32, device="cpu")
+        reqs = [Request(p, max_new_tokens=4) for p in PROMPTS]
+        eng.generate(reqs)
+        streams.append([r.out_tokens for r in reqs])
+    assert all(streams[0]) and streams[0] == streams[1]
 
 
 def test_save_bundle_is_atomic(tmp_path, monkeypatch):

@@ -32,6 +32,7 @@ from repro.launch import specs as JSP
 from repro.launch import steps as JS
 from repro.models import transformer as JT
 
+from repro_torch import quantize as Q
 from repro_torch.configs import get_config
 from repro_torch.configs.registry import ARCHS
 from repro_torch.convert import from_jax_params
@@ -140,7 +141,8 @@ def test_the_ctx_sees_the_masks_sites(arch):
     extra = ({"frames": torch.empty(1, cfg.n_audio_frames, cfg.d_model,
                                     device="meta")}
              if cfg.is_enc_dec else None)
-    T.forward(cfg, D.stub_site_weights(params, art.kernel_buffers),
+    T.forward(cfg, Q.stub_weights(params,
+                                  Q.fused_sites(cfg, params, art.policy)),
               torch.empty(1, 8, dtype=torch.int32, device="meta"), ctx,
               extra=extra)
     seen = set(ctx.backend_log)

@@ -337,6 +337,23 @@ def test_prequantize_refuses_layer_heterogeneous_and_unfoldable_policies(ref_mod
     assert P.site_for_path("layers/mlp/wo") == JP.site_for_path("layers/mlp/wo") == "mlp_down"
 
 
+@pytest.mark.parametrize("suffix", [
+    "attn/wqkv", "attn/wo", "cross/wq", "cross/wkv", "cross/wo", "mlp/wi",
+    "mlp/wo", "moe/wi", "moe/wo", "ssm/in_zx", "ssm/in_bcdt", "ssm/out_proj"])
+def test_site_for_path_matches_reference(suffix):
+    """The port's one site/leaf table names every eligible leaf's site as
+    the reference's does, in each stack, and the shared expert's leaves
+    (under ``moe/shared/``) none."""
+    for root in ("layers", "enc_layers", "shared"):
+        path = f"{root}/{suffix}"
+        assert P.site_for_path(path) == JP.site_for_path(path) is not None
+        assert P.site_for_path(path) in P.SITE_LEAF
+        assert P.SITE_LEAF[P.site_for_path(path)] == tuple(suffix.split("/"))
+    for key in ("wi", "wo"):
+        assert P.site_for_path(f"layers/moe/shared/{key}") is None
+        assert JP.site_for_path(f"layers/moe/shared/{key}") is None
+
+
 @pytest.mark.parametrize("method", ["naive", "muxq", "muxq_smooth"])
 @pytest.mark.parametrize("gran", ["per_tensor", "per_token"])
 def test_prequant_matmul_matches_reference(method, gran):
